@@ -9,17 +9,30 @@ Phases (any failure raises, so the process exits non-zero):
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
      ptxas' register/shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
-     at the main path's shapes, 29 posed full-size bodies per call at
-     windows 160/128/112 (errors printed beside their bounds), then
-     timed against the plain version on the same inputs;
+     at every raster call shape of phases 4 and 6 (KERNEL_SHAPES: 29
+     posed full-size bodies per call at windows 160/128/112, 30 at
+     160/112/80; errors printed beside their bounds), then timed against
+     the plain version on the same inputs;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
      so that the scene rebuild (cycle 30) and the One-Euro refresh
      (cycle 50) both run; checks the kernel launch counters, the losses,
      the refreshes and the pickles, and prints the per-cycle and
-     init-solve seconds;
+     init-solve seconds; fails on a raster call shape phase 3 did not
+     check;
   5. reference: a tiny Predictor.run on the card against the same run on
-     the CPU (plain torch path).
+     the CPU (plain torch path);
+  6. entry points: writes two synthetic MuPoTs trees with the port's
+     writer (TS1 with 3 people, TS2 with 2; 60 frames, 256x256, the full
+     6890-vertex body, annot.mat GT), a sweep-style config (100 cycles,
+     resize_factor 1.0, post_process_depth on), runs
+     `predict_mupots.main --device cuda` on each tree and
+     `eval_mupots.main` over both; prints the raster launches per tree,
+     the ingestion seconds (decode / post-process / assignment), the
+     init and per-cycle seconds and the FinalResults averages; checks
+     the pickles against the JAX package's schema, finite metrics, a
+     pck_rel of at least 95 per tree and, as phase 4, the raster call
+     shapes against phase 3's.
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -34,10 +47,15 @@ import time
 import numpy as np
 import torch
 
-FULL_WINDOWS = (160, 128, 112)
+# The raster calls of the main paths as (bodies per call, windows): a
+# cycle makes one call per window per chunk, and every person has a
+# window of its own in both. Phase 4 (bench-ts1): chunk 29, windows
+# 160/128/112; phase 6 (the entry trees): chunk 30, windows 160/112/80
+# (TS1) and 160/112 (TS2). Phase 3 checks the kernels at each shape,
+# and phases 4 and 6 fail on a call outside this set.
+KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)))
 # body depth whose projection fills each window (bench placement)
-WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0}
-BODIES = 29               # bodies per raster call on the main path
+WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
 NUM_CYCLES = 52
 
 # The kernels must agree with the plain version to rounding: the
@@ -132,6 +150,22 @@ def _cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _raster_calls(cfg):
+    """(bodies per call, window) of the raster calls of a cycle."""
+    return {(cfg.chunk * len(ns), w) for w, ns in cfg.window_groups}
+
+
+def _check_raster_calls(cfg, where):
+    calls = _raster_calls(cfg)
+    checked = {(b, w) for b, wins in KERNEL_SHAPES for w in wins}
+    print(f"[{where}] raster calls (bodies, window): {sorted(calls)}",
+          flush=True)
+    if not calls <= checked:
+        raise AssertionError(f"{where}: raster calls {sorted(calls - checked)}"
+                             f" were not held to the plain version in "
+                             f"phase 3 ({sorted(checked)})")
+
+
 def phase_kernels():
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
     from mhmocap_tpu_torch.ops import raster_cuda as RC
@@ -142,12 +176,13 @@ def phase_kernels():
     # compact chunks and so fewer active (cell, chunk) pairs)
     model = preorder_faces(make_synthetic_smpl(device=dev))
     print(f"[3 kernels] body V={model.num_vertices} F={model.num_faces} "
-          f"(faces preordered), B={BODIES} per call", flush=True)
+          f"(faces preordered), (bodies per call, windows) {KERNEL_SHAPES}",
+          flush=True)
     errs = {"fwd": 0.0, "bwd": 0.0}
     timing = {}
-    for win in FULL_WINDOWS:
+    for B, win in ((b, w) for b, wins in KERNEL_SHAPES for w in wins):
         tab, agg, lists, bounds, inv_blur, znear = _posed_tables(
-            model, win, BODIES, seed=win, device=dev)
+            model, win, B, seed=win, device=dev)
         zk, lk, ak = RC.raster_fwd_cuda(tab, agg, lists, bounds, win,
                                         inv_blur, znear)
         zp, lp, ap = RC.raster_fwd_plain(tab, win, inv_blur, znear)
@@ -162,10 +197,10 @@ def phase_kernels():
             "sil_abs": float((torch.exp(lk) - torch.exp(lp)).abs().max()),
         }
         rng = np.random.RandomState(win + 1)
-        dz = torch.as_tensor(rng.randn(BODIES, win, win), dtype=torch.float32,
+        dz = torch.as_tensor(rng.randn(B, win, win), dtype=torch.float32,
                              device=dev)
         dz = torch.where(ak >= 0, dz, torch.zeros_like(dz)).contiguous()
-        dlk = torch.as_tensor(rng.randn(BODIES, win, win),
+        dlk = torch.as_tensor(rng.randn(B, win, win),
                               dtype=torch.float32, device=dev)
         gk = RC.raster_bwd_cuda(tab, agg, lists, bounds, dz, dlk, ak, win,
                                 inv_blur)
@@ -178,17 +213,18 @@ def phase_kernels():
                                         / torch.linalg.norm(gp))
         errs["fwd"] = max(errs["fwd"], res["zbuf_abs"], res["sil_abs"])
         errs["bwd"] = max(errs["bwd"], float((gk - gp).abs().max()))
-        covered = ck.reshape(BODIES, -1).sum(-1)
-        print(f"[3 kernels] win {win}: covered px per body "
+        covered = ck.reshape(B, -1).sum(-1)
+        print(f"[3 kernels] B={B} win {win}: covered px per body "
               f"{int(covered.min())}..{int(covered.max())}, "
               + ", ".join(f"{k} {v:.3g} (bound {BOUNDS[k]:g})"
                           for k, v in res.items()), flush=True)
         for k, v in res.items():
             if not v <= BOUNDS[k]:
-                raise AssertionError(f"kernel vs plain, window {win}: {k} "
-                                     f"= {v} exceeds {BOUNDS[k]}")
+                raise AssertionError(f"kernel vs plain, B={B} window {win}: "
+                                     f"{k} = {v} exceeds {BOUNDS[k]}")
         if int(covered.min()) == 0:
-            raise AssertionError(f"window {win}: a body covers no pixel")
+            raise AssertionError(f"B={B} window {win}: a body covers no "
+                                 f"pixel")
 
         t = {
             "plain_fwd": _cuda_ms(lambda: RC.raster_fwd_plain(
@@ -200,8 +236,8 @@ def phase_kernels():
             "plain_bwd": _cuda_ms(lambda: RC.raster_bwd_plain(
                 tab, dz, dlk, ak, win, inv_blur), 2),
         }
-        timing[win] = t
-        print(f"[3 kernels] time B={BODIES} win {win}: "
+        timing[B, win] = t
+        print(f"[3 kernels] time B={B} win {win}: "
               f"fwd {t['fwd']:.3f} ms (plain {t['plain_fwd']:.3f}), "
               f"bwd {t['bwd']:.3f} ms (plain {t['plain_bwd']:.3f})",
               flush=True)
@@ -216,11 +252,11 @@ STAGE1_KEYS = (INIT_KEYS - {"pose2d"}) | {
     "window_clip_rates"}
 
 
-def _load_pickles(out_dir):
+def _load_pickles(out_dir, schema=None):
     import pickle
     res = {}
-    for name, keys in (("optvar_init.pkl", INIT_KEYS),
-                       ("optvar_stage1.pkl", STAGE1_KEYS)):
+    for name, keys in (schema or {"optvar_init.pkl": INIT_KEYS,
+                                  "optvar_stage1.pkl": STAGE1_KEYS}).items():
         with open(os.path.join(out_dir, name), "rb") as f:
             d = pickle.load(f)
         if set(d) != keys:
@@ -244,9 +280,7 @@ def phase_main_path(out_dir):
           f"chunk {cfg.chunk} x {cfg.num_chunks}, windows "
           f"{cfg.person_windows}, V={model.num_vertices} "
           f"F={model.num_faces}", flush=True)
-    if cfg.person_windows != FULL_WINDOWS:
-        raise AssertionError(f"windows {cfg.person_windows} != "
-                             f"{FULL_WINDOWS}")
+    _check_raster_calls(cfg, "4 main")
     for k in RasterPlanes.launches:
         RasterPlanes.launches[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -407,15 +441,96 @@ def phase_reference(out_dir):
         raise AssertionError("card vs CPU: " + "; ".join(fails))
 
 
+# The pickles of an on-disk sequence, with the JAX package's keys (the
+# stage-1 pickle carries ingestion's lagged_tn).
+ENTRY_SCHEMA = {
+    "optvar_init.pkl": INIT_KEYS,
+    "optvar_stage1.pkl": STAGE1_KEYS | {"lagged_tn"},
+    "mupots_annot.pkl": {"pose3d_gt", "pose3d_univ_gt", "visibility",
+                         "cam_K"},
+}
+ENTRY_TREES = ((1, 3), (2, 2))       # (TS id, people)
+ENTRY_FRAMES, ENTRY_CYCLES, ENTRY_MIN_PCK = 60, 100, 95.0
+
+
+def phase_entry_points(tmp):
+    """The on-disk chain: port-written trees -> predict_mupots -> eval."""
+    from mhmocap_tpu_torch import eval_mupots, predict_mupots, sweep
+    from mhmocap_tpu_torch.data.synthetic import generate_sequence
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    body = make_synthetic_smpl()
+    for ts, people in ENTRY_TREES:
+        t0 = time.time()
+        generate_sequence(os.path.join(data, f"TS{ts}"),
+                          num_frames=ENTRY_FRAMES, num_people=people,
+                          image_size=(256, 256), model=body, seed=7 + ts,
+                          mupots_gt=True)
+        print(f"[6 entry] wrote TS{ts} ({people} people, {ENTRY_FRAMES} "
+              f"frames, 256x256, V={body.num_vertices}) in "
+              f"{time.time() - t0:.1f}s", flush=True)
+    cfg = sweep.write_config(
+        os.path.join(tmp, "predict.yml"),
+        sweep.sweep_config(data, ENTRY_CYCLES, post_process_depth=True,
+                           bench_cycles=list(range(30, ENTRY_CYCLES + 1))))
+    launches = {}
+    for ts, _ in ENTRY_TREES:
+        for k in RasterPlanes.launches:
+            RasterPlanes.launches[k] = 0
+        t0 = time.time()
+        summary = predict_mupots.main(
+            ["--configs_yml", cfg, "--ts_id", str(ts), "--output_path", out,
+             "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[ts] = dict(RasterPlanes.launches)
+        _check_raster_calls(summary["engine_config"], f"6 entry TS{ts}")
+        ing = summary["ingest_seconds"]
+        cyc = np.asarray(summary["cycle_seconds"])
+        print(f"[6 entry] TS{ts}: raster launches {launches[ts]}; ingestion "
+              f"{ing['total']:.3f}s (decode {ing['decode']:.3f}, "
+              f"{1e3 * ing['decode'] / ENTRY_FRAMES:.1f} ms per frame, "
+              f"post-process {ing['postprocess']:.3f}, assignment "
+              f"{ing['assignment']:.3f}); init solve "
+              f"{summary['init_seconds']:.3f}s; per-cycle median "
+              f"{np.median(cyc):.4f}s over cycles [30, {ENTRY_CYCLES}) "
+              f"(min {cyc.min():.4f}, max {cyc.max():.4f}); predict_mupots "
+              f"{wall:.1f}s", flush=True)
+        if min(launches[ts].values()) <= 0:
+            raise AssertionError(f"TS{ts}: a raster kernel never launched: "
+                                 f"{launches[ts]}")
+        _load_pickles(os.path.join(out, f"TS{ts}"), ENTRY_SCHEMA)
+    final = eval_mupots.main(["--configs_yml", cfg, "--input_path", out,
+                              "--device", "cuda"])
+    print("[6 entry] FinalResults averages: " + json.dumps(
+        {k: v[-1] for k, v in final.items()}), flush=True)
+    print("[6 entry] per tree pck_rel " + json.dumps(final["pck_rel"][:-1])
+          + ", mm_rel_error " + json.dumps(final["mm_rel_error"][:-1]),
+          flush=True)
+    if not all(np.isfinite(v).all() for v in final.values()):
+        raise AssertionError(f"non-finite metrics: {final}")
+    low = [p for p in final["pck_rel"][:-1] if not p >= ENTRY_MIN_PCK]
+    if low:
+        raise AssertionError(f"pck_rel {final['pck_rel'][:-1]} below "
+                             f"{ENTRY_MIN_PCK}")
+    return launches
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
     phase_build()
     errs, timing = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(os.path.join(tmp, "main"))
+        main_launches = phase_main_path(os.path.join(tmp, "main"))
         phase_reference(os.path.join(tmp, "ref"))
-    t160 = timing[160]
+        entry_launches = phase_entry_points(os.path.join(tmp, "entry"))
+    # the launches of every main-path run, each counted from 0
+    launches = {k: main_launches[k] + sum(v[k] for v in
+                                          entry_launches.values())
+                for k in main_launches}
+    t160 = timing[29, 160]
     kernels = [
         {"name": "raster_fwd", "route": "cuda",
          "source": "mhmocap_tpu_torch/ops/csrc/raster_fwd.cu",

@@ -318,3 +318,19 @@ def smpl_forward(model: SMPLModel, betas: torch.Tensor,
     if transl is not None:
         out = {k: v + transl[:, None, :] for k, v in out.items()}
     return out
+
+
+def joints_function(model: SMPLModel, key: str):
+    """numpy (betas (P, 10), poses (P, 72)) -> numpy (P, J, 3): the `key`
+    joints of `smpl_forward` on the model's device (the joint regression
+    of ingestion and evaluation)."""
+    def fn(betas, poses):
+        with torch.no_grad():
+            out = smpl_forward(
+                model,
+                torch.as_tensor(np.asarray(betas, np.float32),
+                                device=model.device),
+                torch.as_tensor(np.asarray(poses, np.float32),
+                                device=model.device))
+        return out[key].cpu().numpy()
+    return fn

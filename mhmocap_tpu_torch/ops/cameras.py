@@ -1,8 +1,9 @@
 """Camera models and bounded reparameterizations on torch tensors.
 
 Port of `mhmocap_tpu/ops/cameras.py`: perspective projection with the
-reference's OpenCV-style distortion, UVD unprojection, intrinsics from
-a field of view, and softplus. Shape-polymorphic like the JAX version:
+reference's OpenCV-style distortion, UVD unprojection, ROMP's
+weak-perspective projection, intrinsics from a field of view, the
+fov <-> focal conversions, and softplus. Shape-polymorphic like the JAX version:
 (..., P, 3) points against a (3, 3) or broadcastable (..., 3, 3) K.
 """
 
@@ -46,6 +47,22 @@ def unproject_points(uvd: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     z = uvd[..., 2:3]
     xy = z * (uvd[..., :2] - cxy[..., None, :]) / fxy[..., None, :]
     return torch.cat([xy, z], dim=-1)
+
+
+def weak_perspective_projection(p3d: torch.Tensor, cam: torch.Tensor,
+                                image_size: Tuple[int, int]) -> torch.Tensor:
+    """ROMP-style orthographic projection of (..., P, 3) points with
+    (..., 3) cams [scale, tx, ty] to pixels:
+    max(W, H) * ((s * xy + t) / 2 + (W, H) / (2 max(W, H)))."""
+    cam = cam[..., None, :]
+    p2d = cam[..., 0:1] * p3d[..., :2] + cam[..., 1:]
+    wh = torch.as_tensor(image_size, dtype=p2d.dtype, device=p2d.device)
+    m = float(max(image_size))
+    return m * (p2d / 2.0 + wh / (2.0 * m))
+
+
+def fov_from_focal(side: float, focal: float) -> float:
+    return float(np.degrees(2.0 * np.arctan(0.5 * side / focal)))
 
 
 def focal_from_fov(side: float, fov_deg: float) -> float:

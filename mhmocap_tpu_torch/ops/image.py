@@ -4,7 +4,10 @@ Port of `mhmocap_tpu/ops/image.py`: masked window and temporal medians
 (the mean of elements (n-1)//2 and n//2 of the sorted valid values, not
 `torch.median`'s lower element), iterative masked fill-in, Sobel
 magnitude with reflect padding, the bilateral filter, the Sobel
-outlier mask and `postprocess_depthmap`.
+outlier mask, `postprocess_dispmap` and `postprocess_depthmap`, and the
+two resizes of the ingestion in PIL's semantics. The window ops work on
+(H, W) or batched (..., H, W) frames, each frame on its own (the JAX
+package vmaps them).
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ _BIG = 3.4e38
 
 
 def _unfold(x: torch.Tensor, k: int, fill: float) -> torch.Tensor:
-    """k*k neighbourhoods: (H, W) -> (H, W, k*k), padded with `fill`."""
+    """k*k neighbourhoods: (..., H, W) -> (..., H, W, k*k), padded with
+    `fill`."""
     pad = k // 2
     xp = F.pad(x, (pad, pad, pad, pad), value=fill)
-    H, W = x.shape
-    return torch.stack([xp[i:i + H, j:j + W]
+    H, W = x.shape[-2:]
+    return torch.stack([xp[..., i:i + H, j:j + W]
                         for i in range(k) for j in range(k)], dim=-1)
 
 
@@ -68,9 +72,10 @@ def sobel_magnitude(x: torch.Tensor) -> torch.Tensor:
     kx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]],
                       dtype=x.dtype, device=x.device)
     w = torch.stack([kx, kx.T])[:, None]                  # (2, 1, 3, 3)
-    xp = F.pad(x[None, None], (1, 1, 1, 1), mode="reflect")
-    g = F.conv2d(xp, w)[0]
-    return torch.abs(g[0]) + torch.abs(g[1])
+    xp = F.pad(x.reshape((-1, 1) + x.shape[-2:]), (1, 1, 1, 1),
+               mode="reflect")
+    g = F.conv2d(xp, w)
+    return (torch.abs(g[:, 0]) + torch.abs(g[:, 1])).reshape(x.shape)
 
 
 def bilateral_filter(x: torch.Tensor, d: int = 9, sigma_color: float = 0.05,
@@ -95,14 +100,56 @@ def bilateral_filter(x: torch.Tensor, d: int = 9, sigma_color: float = 0.05,
 def _edge_outlier_mask(disp, depth):
     """Pixels whose combined normalized Sobel gradient exceeds 3x its
     mean are outliers; the clean mask is eroded twice with a 3x3
-    kernel. std is the population std (correction=0), as jnp.std."""
+    kernel. Statistics are per frame; std is the population std
+    (correction=0), as jnp.std."""
+    def std(t):
+        return torch.clamp(torch.std(t, dim=(-2, -1), correction=0,
+                                     keepdim=True), min=1e-8)
+
     g_disp = sobel_magnitude(disp)
     g_depth = sobel_magnitude(depth)
-    g = (g_disp / torch.clamp(torch.std(g_disp, correction=0), min=1e-8)
-         + g_depth / torch.clamp(torch.std(g_depth, correction=0),
-                                 min=1e-8))
-    edges = (g > 3.0 * torch.mean(g)).to(disp.dtype)
+    g = g_disp / std(g_disp) + g_depth / std(g_depth)
+    edges = (g > 3.0 * torch.mean(g, dim=(-2, -1), keepdim=True)).to(
+        disp.dtype)
     return erode(1.0 - edges, kernel_size=3, iterations=2)
+
+
+def postprocess_dispmap(dispmap, minz: float = 1.0, maxz: float = 20.0,
+                        fillin_ksize: int = 7):
+    """Outlier removal + fill-in for normalized disparity maps
+    (..., H, W): clip, Sobel outliers on the disparity and the depth it
+    induces, erode the valid mask, median-fill the holes."""
+    disp = torch.clamp(dispmap, 1.0 / maxz, 1.0)
+    depth = 1.0 / (disp * (1.0 / minz - 1.0 / maxz) + 1.0 / maxz)
+    dmask = _edge_outlier_mask(disp, depth)
+    filled, _ = fillin_masked(disp, dmask, fillin_ksize)
+    return filled
+
+
+def _resize(x: torch.Tensor, size_wh, mode: str, **kw) -> torch.Tensor:
+    """(B, H, W[, C]) -> (B, h, w[, C]) in float32."""
+    chan = x.ndim == 4
+    y = x.to(torch.float32)
+    y = y.permute(0, 3, 1, 2) if chan else y[:, None]
+    y = F.interpolate(y, size=(size_wh[1], size_wh[0]), mode=mode, **kw)
+    return y.permute(0, 2, 3, 1) if chan else y[:, 0]
+
+
+def resize_bicubic(x: torch.Tensor, size_wh) -> torch.Tensor:
+    """PIL's `resize(size_wh, BICUBIC)` of a batch of frames: the
+    antialiased a = -0.5 cubic; uint8 frames are rounded and clamped as
+    PIL does, other dtypes come back as float32."""
+    y = _resize(x, size_wh, "bicubic", antialias=True, align_corners=False)
+    if x.dtype == torch.uint8:
+        return torch.round(y).clamp(0, 255).to(torch.uint8)
+    return y
+
+
+def resize_nearest(x: torch.Tensor, size_wh) -> torch.Tensor:
+    """PIL's `resize(size_wh, NEAREST)` of a batch of label frames when
+    downscaling ("nearest-exact" samples the pixel centres as PIL does;
+    computed in float32, exact for labels below 2**24)."""
+    return _resize(x, size_wh, "nearest-exact").to(x.dtype)
 
 
 def postprocess_depthmap(depth, mask=None, fillin_ksize: int = 7,

@@ -3,7 +3,8 @@
 Port of `mhmocap_tpu/ops/one_euro.py`: the step API used by the
 chunked filtered-target refresh, and the (T, ...) filter with the
 'ramp' (t_e = i / rate) or 'uniform' (t_e = 1 / rate) time base and an
-optional hold mask. The time loop is a Python loop over frames.
+optional hold mask, and the forward + backward average used to smooth
+the 2D poses at ingestion. The time loop is a Python loop over frames.
 """
 
 from __future__ import annotations
@@ -80,3 +81,18 @@ def one_euro_filter(x: torch.Tensor, min_cutoff: float = 0.004,
         te_prev = (1 - mi) * t_e
         ys.append((1 - mi) * xi + mi * x_hat)
     return torch.stack(ys, dim=0)
+
+
+def one_euro_bidirectional(x: torch.Tensor, valid: Optional[torch.Tensor],
+                           min_cutoff: float, beta: float,
+                           frame_rate: float = 25.0) -> torch.Tensor:
+    """Mean of a forward and a time-reversed 'ramp' pass over the
+    (T, ...) signal, with the update mask `valid` (or None)."""
+    fwd = one_euro_filter(x, min_cutoff=min_cutoff, beta=beta,
+                          frame_rate=frame_rate, mask=valid,
+                          dt_mode="ramp")
+    rmask = None if valid is None else torch.flip(valid, dims=(0,))
+    bwd = one_euro_filter(torch.flip(x, dims=(0,)), min_cutoff=min_cutoff,
+                          beta=beta, frame_rate=frame_rate, mask=rmask,
+                          dt_mode="ramp")
+    return 0.5 * (fwd + torch.flip(bwd, dims=(0,)))

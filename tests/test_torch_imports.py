@@ -1,5 +1,6 @@
 """The port runs without JAX and without the JAX package's host-side
-dependencies, and keeps float32 matmuls and convolutions out of TF32."""
+dependencies (PyYAML, PIL, OpenCV, matplotlib, ...), and keeps float32
+matmuls and convolutions out of TF32."""
 
 import os
 import subprocess
@@ -10,8 +11,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "yaml", "PIL", "matplotlib", "optax", "flax",
-           "orbax", "mhmocap_tpu")
+BLOCKED = ("jax", "jaxlib", "yaml", "PIL", "cv2", "matplotlib", "optax",
+           "flax", "orbax", "mhmocap_tpu")
 
 SCRIPT = textwrap.dedent("""
     import importlib.abc, sys, tempfile, types
@@ -27,8 +28,14 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)
     import mhmocap_tpu_torch
-    from mhmocap_tpu_torch import convert, profile_cycle, workload
+    from mhmocap_tpu_torch import (config, convert, eval_mupots, io,
+                                   predict_internet, predict_mupots,
+                                   profile_cycle, sweep, workload)
+    from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
+                                        mupots, romp)
+    from mhmocap_tpu_torch.data import synthetic as synthetic_tree
     from mhmocap_tpu_torch.engine import optimizer as E, predictor, scene
+    from mhmocap_tpu_torch.eval import metrics, mupots_eval
     from mhmocap_tpu_torch.models import loader, smpl, synthetic
     from mhmocap_tpu_torch.ops import (cameras, image, morphology, one_euro,
                                        raster_cuda, rasterizer)
@@ -66,6 +73,33 @@ SCRIPT = textwrap.dedent("""
         E.default_coefs(), cfg)
     assert aux.have_scene and aux.have_filters
     assert torch.isfinite(loss) and torch.isfinite(parts).all()
+
+    # the entry points on a port-written tree: JPEG/PNG/YAML without
+    # PIL, OpenCV or PyYAML
+    import json, os
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_tree.generate_sequence(
+            os.path.join(tmp, "data", "TS1"), num_frames=5, num_people=2,
+            image_size=(64, 64), model=model, seed=3, mupots_gt=True)
+        cfg = sweep.write_config(os.path.join(tmp, "p.yml"),
+                                 sweep.sweep_config(
+                                     os.path.join(tmp, "data"), 2,
+                                     raster_window=32,
+                                     post_process_depth=True))
+        predict_mupots.resolve_smpl_model = lambda path: model
+        eval_mupots.resolve_smpl_model = lambda path: model
+        out = os.path.join(tmp, "out")
+        predict_mupots.main(["--configs_yml", cfg, "--ts_id", "1",
+                             "--output_path", out, "--device", "cpu"])
+        eval_mupots.main(["--configs_yml", cfg, "--input_path", out,
+                          "--device", "cpu"])
+        names = sorted(os.listdir(os.path.join(out, "TS1")))
+        assert names == ["mupots_annot.pkl", "optvar_init.pkl",
+                         "optvar_stage1.pkl"], names
+        with open(os.path.join(out, "FinalResults.json")) as f:
+            final = json.load(f)["final_results"]
+        assert all(v == v for vals in final.values() for v in vals), final
+        assert os.path.exists(os.path.join(out, "FinalResults.md"))
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     print("PORT-OK")
@@ -74,9 +108,11 @@ SCRIPT = textwrap.dedent("""
 
 def test_port_runs_without_jax_and_host_deps():
     """Import every port module and run SMPL, the raster, a tiny
-    Predictor.run and a cycle with the scene and filter refreshes, in a
-    fresh interpreter where jax, yaml, PIL, matplotlib, optax, flax,
-    orbax and mhmocap_tpu cannot be imported."""
+    Predictor.run, a cycle with the scene and filter refreshes, and
+    predict_mupots + eval_mupots on a port-written tree with
+    --device cpu, in a fresh interpreter where jax, yaml, PIL, cv2,
+    matplotlib, optax, flax, orbax and mhmocap_tpu cannot be
+    imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT.format(blocked=BLOCKED)], cwd=REPO,
