@@ -7,12 +7,17 @@ Phases (any failure raises, so the process exits non-zero):
      power limit;
   2. build: compiles the raster kernels (ops/csrc/*.cu) with nvcc for
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
-     ptxas' register/shared-memory report;
+     ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
      at every raster call shape of phases 4 and 6 (KERNEL_SHAPES: 29
      posed full-size bodies per call at windows 160/128/112, 30 at
-     160/112/80; errors printed beside their bounds), then timed against
-     the plain version on the same inputs;
+     160/112/80; errors printed beside their bounds), two backward
+     launches bit-identical, then timed against the plain version on
+     the same inputs; prints the active (cell, chunk) pairs (the
+     forward's cell-major schedule, held equal to the backward's
+     chunk-major cells), the pixel-face pairs among them whose
+     coverage term is not 0, and each kernel's bound on that work and
+     its share of it;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
      so that the scene rebuild (cycle 30) and the One-Euro refresh
@@ -73,6 +78,46 @@ BOUNDS = {
 }
 
 
+# The least time the card could take for a kernel's work (bound_ms):
+# the larger of its f32 operations over the H100 SXM's 67 TFLOP/s and
+# its bytes (each input read once, each output written once) over
+# 3.35 TB/s (NVIDIA's data sheet, 700 W). The operations are counted
+# on this run's data (raster_cuda._pair_work): only the pixel-face
+# pairs of active (cell, chunk) pairs whose coverage term is not
+# exactly 0 (live), the covered ones among them and the depth winners
+# do per-pair work, and a face's y terms are evaluated once per window
+# row with a live pair. Operations from the plain version's arithmetic,
+# a transcendental counted as one and |x| or -x as a free operand
+# modifier:
+#   forward, per live pair: 3 edge planes (9), the bbox clamp's x part
+#     and its max with the y part (4), max (3), d|d| inv_blur (2),
+#     log-sigmoid (4: min, expf, log1pf, sub), sum (1), cover test (1);
+#     per covered pair: z plane (3), z > znear, z-min and winner (4);
+#     per live row: the 4 planes' y products (4), the bbox's y part (3);
+#   backward, per live pair: 3 edge planes (9), bbox (4), max (3), |d|,
+#     d|d|, inv_blur (3), sigmoid (4: expf, 1 + e, select, divide),
+#     g (4), routing to the winning edge (3), its 3 sums (3); per depth
+#     winner: its 3 sums (3); per live row: the 3 edge planes' y
+#     products (3), the bbox's y part (3), the 12 sums' rebase (24).
+# Both kernels are built with --fmad=false, so a multiply and an add
+# are two instructions and the attainable floor is about twice the
+# operations bound.
+F32_OPS_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
+OPS = {"fwd": {"live": 24, "covered": 7, "rows": 7},
+       "bwd": {"live": 33, "winners": 3, "rows": 30}}
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(ops, nbytes):
+    """(bound ms, what sets it)."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,7 +143,7 @@ def phase_build():
     print(f"[2 build] {lib} in {dt:.2f}s"
           + ("" if log else " (already built)"), flush=True)
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
             print(f"[2 build] ptxas: {line.strip()}")
     RC._library()
     return dt
@@ -202,10 +247,13 @@ def phase_kernels():
         dz = torch.where(ak >= 0, dz, torch.zeros_like(dz)).contiguous()
         dlk = torch.as_tensor(rng.randn(B, win, win),
                               dtype=torch.float32, device=dev)
-        gk = RC.raster_bwd_cuda(tab, agg, lists, bounds, dz, dlk, ak, win,
-                                inv_blur)
+        gk = RC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win, inv_blur)
+        gk2 = RC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win, inv_blur)
         gp = RC.raster_bwd_plain(tab, dz, dlk, ak, win, inv_blur)
         torch.cuda.synchronize()
+        if not torch.equal(gk, gk2):
+            raise AssertionError(f"B={B} window {win}: two backward launches "
+                                 f"on the same inputs differ")
         scale = float(gp.abs().max())
         res["dplanes_rel_max"] = float((gk - gp).abs().max()) / max(scale,
                                                                    1e-30)
@@ -226,21 +274,55 @@ def phase_kernels():
             raise AssertionError(f"B={B} window {win}: a body covers no "
                                  f"pixel")
 
+        # the work: active (cell, chunk) pairs of the forward's
+        # cell-major schedule, which must be the backward's chunk-major
+        # cells exactly
+        pairs = int(RC._active_pairs(agg, lists, bounds, win).sum())
+        cells = RC._chunk_cells(agg, win).long()
+        chunk_major = int(((cells[..., 1] - cells[..., 0] + 1).clamp(min=0)
+                           * (cells[..., 3] - cells[..., 2] + 1).clamp(min=0))
+                          .sum())
+        if chunk_major != pairs:
+            raise AssertionError(f"B={B} window {win}: the backward's "
+                                 f"chunk-major cells ({chunk_major}) are not "
+                                 f"the forward's active pairs ({pairs})")
+        pix_face = pairs * RC.STRIP_H * (win // RC._n_xb(win)) * RC.FACE_CHUNK
+        live, covered, rows = RC._pair_work(tab, agg, lists, bounds, win,
+                                            inv_blur)
+        n = {"live": live, "covered": covered, "rows": rows,
+             "winners": int((ak >= 0).sum())}
+        work = {   # (operations, bytes) per call
+            k: (sum(ops * n[c] for c, ops in OPS[k].items()), nbytes)
+            for k, nbytes in (
+                ("fwd", _nbytes(tab, agg, lists, bounds, zk, lk, ak)),
+                ("bwd", _nbytes(tab, agg, dz, dlk, ak, gk)))}
+        bound = {k: _bound(*v) for k, v in work.items()}
         t = {
             "plain_fwd": _cuda_ms(lambda: RC.raster_fwd_plain(
                 tab, win, inv_blur, znear), 2),
             "fwd": _cuda_ms(lambda: RC.raster_fwd_cuda(
-                tab, agg, lists, bounds, win, inv_blur, znear), 5),
+                tab, agg, lists, bounds, win, inv_blur, znear), 20),
             "bwd": _cuda_ms(lambda: RC.raster_bwd_cuda(
-                tab, agg, lists, bounds, dz, dlk, ak, win, inv_blur), 5),
+                tab, agg, dz, dlk, ak, win, inv_blur), 20),
             "plain_bwd": _cuda_ms(lambda: RC.raster_bwd_plain(
                 tab, dz, dlk, ak, win, inv_blur), 2),
         }
-        timing[B, win] = t
+        timing[B, win] = dict(t, pairs=pairs, live=live, bound=bound)
         print(f"[3 kernels] time B={B} win {win}: "
               f"fwd {t['fwd']:.3f} ms (plain {t['plain_fwd']:.3f}), "
               f"bwd {t['bwd']:.3f} ms (plain {t['plain_bwd']:.3f})",
               flush=True)
+        print(f"[3 kernels] work B={B} win {win}: {pairs} active (cell, "
+              f"chunk) pairs holding {pix_face} pixel-face pairs, of which "
+              f"{live} live ({live / pix_face:.3f}) and {covered} covered; "
+              f"{rows} live (body, row, face) rows; {n['winners']} depth "
+              f"winners", flush=True)
+        print(f"[3 kernels] bound B={B} win {win}: "
+              + ", ".join(f"{k} {work[k][0] / 1e9:.3f} GFLOP and "
+                          f"{work[k][1] / 1e6:.1f} MB, bound "
+                          f"{bound[k][0]:.4f} ms ({bound[k][1]}), share "
+                          f"{bound[k][0] / t[k]:.3f}"
+                          for k in ("fwd", "bwd")), flush=True)
     return errs, timing
 
 
@@ -530,19 +612,19 @@ def main():
     launches = {k: main_launches[k] + sum(v[k] for v in
                                           entry_launches.values())
                 for k in main_launches}
+    # times and bounds at B=29, window 160; no single PyTorch call
+    # computes either function, so neither has a library time
     t160 = timing[29, 160]
     kernels = [
-        {"name": "raster_fwd", "route": "cuda",
-         "source": "mhmocap_tpu_torch/ops/csrc/raster_fwd.cu",
-         "replaces": "mhmocap_tpu/ops/raster_pallas.py:515",
-         "launches": launches["fwd"], "max_abs_err": errs["fwd"],
-         "ms": t160["fwd"], "plain_ms": t160["plain_fwd"]},
-        {"name": "raster_bwd", "route": "cuda",
-         "source": "mhmocap_tpu_torch/ops/csrc/raster_bwd.cu",
-         "replaces": "mhmocap_tpu/ops/raster_pallas.py:650",
-         "launches": launches["bwd"], "max_abs_err": errs["bwd"],
-         "ms": t160["bwd"], "plain_ms": t160["plain_bwd"]},
-    ]
+        {"name": f"raster_{k}", "route": "cuda",
+         "source": f"mhmocap_tpu_torch/ops/csrc/raster_{k}.cu",
+         "replaces": f"mhmocap_tpu/ops/raster_pallas.py:{line}",
+         "launches": launches[k], "max_abs_err": errs[k],
+         "ms": t160[k], "plain_ms": t160[f"plain_{k}"],
+         "bound_ms": t160["bound"][k][0], "bound_by": t160["bound"][k][1],
+         "library_ms": None, "pairs": t160["pairs"],
+         "live_pairs": t160["live"]}
+        for k, line in (("fwd", 515), ("bwd", 650))]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -334,17 +334,22 @@ def parse_args(input_args: Optional[List[str]] = None):
     return parsed
 
 
-def resolve_device(parsed):
-    """The torch device the entry points run on. A CUDA device without
-    a GPU is an error: nothing carries on on the CPU unless the user
-    asked for `--device cpu`."""
+def require_device(device, cpu_hint='device="cpu"'):
+    """`torch.device(device)`, refusing a CUDA device without a GPU:
+    nothing carries on on the CPU unless the caller asked for it, as
+    `cpu_hint` tells them. Every entry point, Python or CLI, checks its
+    device here."""
     import torch
-    device = torch.device(parsed.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {parsed.device}: no CUDA device is "
-                           f"available (pass --device cpu to run on the "
-                           f"CPU)")
-    return device
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           f"(pass {cpu_hint} to run on the CPU)")
+    return dev
+
+
+def resolve_device(parsed):
+    """The torch device the CLI entry points run on (`--device`)."""
+    return require_device(parsed.device, "--device cpu")
 
 
 class ConfigContext:

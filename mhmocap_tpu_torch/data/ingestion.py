@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import require_device
 from ..io import read_jpegs, read_png
 from ..ops.cameras import (focal_from_fov, fov_from_focal,
                            weak_perspective_projection)
@@ -405,7 +406,7 @@ def load_sequence(
     lagged_conf_decay: float = 1.0,
     id_swap_fix: float = 0.0,
     verbose: bool = True,
-    device="cpu",
+    device="cuda",
     timings: Optional[Dict[str, float]] = None,
 ) -> SequenceArrays:
     """Load and align a full sequence; the arguments are the JAX
@@ -415,7 +416,9 @@ def load_sequence(
     the AlphaPose-layout joints of the assignment. A `timings` dict, if
     given, receives the seconds spent decoding files ("decode"),
     post-processing disparity and label maps ("postprocess") and
-    assigning tracks, SMPL predictions and masks ("assignment")."""
+    assigning tracks, SMPL predictions and masks ("assignment"). The
+    device is the GPU unless the caller passes device="cpu"."""
+    device = require_device(device)
     t_start = time.time()
     all_names = sorted(os.path.splitext(os.path.basename(p))[0]
                        for p in glob.glob(

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..config import require_device
 from ..data.ingestion import SequenceArrays
 from ..models.smpl import SMPLModel
 from ..ops.image import fillin_masked
@@ -44,10 +45,11 @@ def _not_ported(what: str):
 
 class Predictor:
     """Run the init solve and the stage-1 fit for one sequence on
-    `device`."""
+    `device` (the GPU unless the caller passes device="cpu")."""
 
     def __init__(self, seq: SequenceArrays, model: SMPLModel,
-                 output_path: str, parsed_args, device="cpu", **_):
+                 output_path: str, parsed_args, device="cuda", **_):
+        device = require_device(device)
         if getattr(parsed_args, "save_visualizations", False):
             _not_ported("save_visualizations")
         if int(getattr(parsed_args, "checkpoint_every", 0) or 0) > 0:
@@ -57,7 +59,7 @@ class Predictor:
         if getattr(parsed_args, "gap_interpolate", False):
             _not_ported("gap_interpolate")
         os.makedirs(output_path, exist_ok=True)
-        self.device = torch.device(device)
+        self.device = device
         self.seq = seq
         self.model = preorder_faces(model).to(self.device)
         self.output_path = output_path

@@ -2,7 +2,7 @@
 // from the per-pixel depth and silhouette cotangents.
 //
 // Replaces mhmocap_tpu/ops/raster_pallas.py:_bwd_kernel (launched by
-// _run_backward, pl.pallas_call at :650). Per active (cell, chunk) block
+// _run_backward, pl.pallas_call at :650). Per active (cell, chunk) pair
 // and pixel p, face f:
 //   g    = dlk(p) * sigmoid(-d|d| inv_blur) * 2|d| inv_blur
 //          routed to the edge plane that won the max, first match in
@@ -11,140 +11,232 @@
 //   dC_f += [px, py, 1]^T [g_0, g_1, g_2, gz]
 // into the (B, F_pad, 12) plane-coefficient gradient.
 //
-// What bounds it on the H100: the same pair arithmetic as the forward
-// (one expf per pair for the sigmoid), plus the reduction over pixels.
-// The TPU kernel reduces with one P^T G matmul per chunk on the MXU; on
-// this card the reduction is mapped to threads instead: one thread per
-// FACE of the chunk, looping over the cell's pixels, whose cotangents
-// are staged in shared memory and read as broadcasts. Each thread then
-// owns its face's 12 sums in registers, so the reduction needs no
-// shuffles or shared-memory trees, and the block issues one atomicAdd
-// per nonzero coefficient per active (cell, chunk) pair. Pixel
-// coordinates are summed cell-relative (k + 0.5) and rebased once, as
-// the TPU kernel's "split" mode does, which keeps the f32 sums tight.
-// The order of the atomics varies between runs, so results agree with
-// the plain version to rounding, not bit for bit.
+// What bounds it on the H100: arithmetic. At B=29 bodies, window 160
+// the faces-preordered body gives 15037 active (cell, chunk) pairs
+// holding 246 M pixel-face pairs, of which 57 M (23%) add anything (the
+// rest have d|d| inv_blur above the point where expf underflows). Each
+// of those costs ~33 f32 operations, one expf among them, and each row
+// of a face with one ~30 more: ~2.0 GFLOP, 0.030 ms at 67 TFLOP/s
+// (about twice that with --fmad=false, where a multiply-add is two
+// instructions), against ~50 MB of tables, cotangents and output
+// (15 us at 3.35 TB/s).
+//
+// The TPU kernel walks cells in grid order on one core and accumulates
+// each chunk's P^T G product into one VMEM output. On this card blocks
+// run in parallel, so each face's output is owned by one block:
+//   * one block per (face chunk, body); thread (h, l) owns face
+//     ch * 128 + l and rows 4 h .. 4 h + 3 of every cell, so two row
+//     groups split each cell's pixels and the block's work is the
+//     chunk's cells (mean 5.2, at most 25 at B=29) rather than a cell's
+//     chunks (71% of cell blocks had none, the busiest 36);
+//   * the cells are the rectangle of strips x x-blocks that the
+//     chunk's bbox aggregate reaches (chunk_cells, the same 4-scalar
+//     test as chunk_active), so the kernel reads no schedule table;
+//   * the face's 13 table values are loaded once, into registers; each
+//     cell's cotangents (dz, dlk, amin) go to shared memory with
+//     cp.async, double-buffered, and are read as warp broadcasts;
+//   * most pairs add exactly nothing: where -d|d| inv_blur <= -110,
+//     expf underflows to 0 (below -104 its value is under half the
+//     least subnormal), so the sigmoid and g are 0. A thread skips the
+//     rows and columns whose bbox distance alone (a lower bound of d)
+//     puts them there, and every other pair whose d does. The depth
+//     winner of a pixel covers it (d <= 0), so no gz is skipped;
+//   * the 12 sums stay in registers across the cells, summed per row
+//     with cell-relative x and rebased once per row (py exact); the
+//     two row groups are added in shared memory in a fixed order and
+//     every coefficient is stored once with a coalesced plain store: no
+//     atomics, no zero fill, bit-identical results from run to run.
+// Exact f32 (no fast math, --fmad=false) and the plain version's
+// operation order for the planes, the bbox clamp and the sigmoid.
+
+#include <cuda_pipeline_primitives.h>
 
 #include "raster_common.cuh"
 
 namespace mhmocap_raster {
 
+constexpr int ROW_SPLIT = 2;                          // row groups per cell
+constexpr int ROWS_PER_GROUP = STRIP_H / ROW_SPLIT;   // 4
+constexpr int BWD_THREADS = ROW_SPLIT * FACE_CHUNK;   // 256
+constexpr int RED_STRIDE = 13;                        // 12 sums + 1 pad
+// -d|d| inv_blur at or below X_ZERO: expf is 0, and so is the pair's
+// silhouette gradient. The bbox cull uses the distance
+// sqrt(X_CULL / inv_blur): with X_CULL > -X_ZERO a culled pair stays
+// below X_ZERO through the rounding of the column bounds.
+constexpr float X_ZERO = -110.0f;
+constexpr float X_CULL = 111.0f;
+
+// sigmoid(x) as the stable two-sided form 1 / (1 + e^-x) for x >= 0 and
+// e^x / (1 + e^x) below, with one expf and no branch: both sides divide
+// by 1 + expf(-|x|).
 __device__ __forceinline__ float sigmoid(float x) {
-  // stable form on both sides of 0
-  if (x >= 0.0f) return 1.0f / (1.0f + expf(-x));
-  const float e = expf(x);
-  return e / (1.0f + e);
+  const float e = expf(-fabsf(x));
+  return (x >= 0.0f ? 1.0f : e) / (1.0f + e);
 }
 
-__global__ void raster_bwd_kernel(const float* __restrict__ tab,
-                                  const float* __restrict__ agg,
-                                  const int* __restrict__ lists,
-                                  const int* __restrict__ bounds,
-                                  const float* __restrict__ dz,
-                                  const float* __restrict__ dlk,
-                                  const int* __restrict__ amin,
-                                  float* __restrict__ dplanes, int F_pad,
-                                  int win, int n_xb, float inv_blur) {
-  extern __shared__ float smem[];
-  const int cell_id = blockIdx.x;
-  const int b = blockIdx.y;
-  const int n_strips = win / STRIP_H;
-  const int n_cells = n_strips * n_xb;
-  const int nc = F_pad / FACE_CHUNK;
-  const Cell c = make_cell(cell_id, win, n_xb);
-  float* s_dz = smem;
-  float* s_dlk = smem + c.npx;
-  int* s_amin = reinterpret_cast<int*>(smem + 2 * c.npx);
+// The smem the kernel needs: two staging buffers of one cell's
+// cotangents, reused after the cell loop for the row groups' sums.
+__host__ __device__ inline size_t bwd_shmem_bytes(int npx) {
+  const size_t stage = 2 * static_cast<size_t>(npx) * sizeof(float4);
+  const size_t red = static_cast<size_t>(ROW_SPLIT) * FACE_CHUNK *
+                     RED_STRIDE * sizeof(float);
+  return stage > red ? stage : red;
+}
 
-  const size_t img = static_cast<size_t>(b) * win * win;
-  for (int p = threadIdx.x; p < c.npx; p += blockDim.x) {
-    const int row = c.s * STRIP_H + p / c.xw;
-    const int col = c.xb * c.xw + p % c.xw;
-    const size_t o = img + static_cast<size_t>(row) * win + col;
-    s_dz[p] = dz[o];
-    s_dlk[p] = dlk[o];
-    s_amin[p] = amin[o];
+// Copy the cotangents of cell (s, xb) into buf: per pixel {dz, dlk,
+// amin bits, unused}, 4-byte cp.async each.
+__device__ __forceinline__ void stage_cell(float4* buf, const float* dz,
+                                           const float* dlk, const int* amin,
+                                           size_t img, int s, int xb, int xw,
+                                           int win) {
+  const int npx = STRIP_H * xw;
+  for (int p = threadIdx.x; p < npx; p += blockDim.x) {
+    const size_t o = img + static_cast<size_t>(s * STRIP_H + p / xw) * win +
+                     xb * xw + p % xw;
+    __pipeline_memcpy_async(&buf[p].x, dz + o, sizeof(float));
+    __pipeline_memcpy_async(&buf[p].y, dlk + o, sizeof(float));
+    __pipeline_memcpy_async(&buf[p].z, amin + o, sizeof(int));
   }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 4)
+    raster_bwd_kernel(const float* __restrict__ tab,
+                      const float* __restrict__ agg,
+                      const float* __restrict__ dz,
+                      const float* __restrict__ dlk,
+                      const int* __restrict__ amin,
+                      float* __restrict__ dplanes, int F_pad, int win,
+                      int n_xb, float inv_blur) {
+  extern __shared__ float4 smem4[];
+  const int ch = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nc = F_pad / FACE_CHUNK;
+  const int xw = win / n_xb;
+  const int npx = STRIP_H * xw;
+  const int l = threadIdx.x % FACE_CHUNK;
+  const int h = threadIdx.x / FACE_CHUNK;  // warp-uniform
+  const int f = ch * FACE_CHUNK + l;
+
+  const CellRange cr = chunk_cells(agg + (static_cast<size_t>(b) * nc + ch) * 4,
+                                   win, n_xb);
+  const int n_x = cr.xb_hi - cr.xb_lo + 1;
+  const int n_cells = cr.s_hi < cr.s_lo || n_x <= 0
+                          ? 0 : (cr.s_hi - cr.s_lo + 1) * n_x;
+  const size_t img = static_cast<size_t>(b) * win * win;
+  if (n_cells > 0) stage_cell(smem4, dz, dlk, amin, img, cr.s_lo, cr.xb_lo,
+                              xw, win);
+
+  const float* tab_b = tab + static_cast<size_t>(b) * TAB_ROWS * F_pad + f;
+  float k[9];
+#pragma unroll
+  for (int r = 0; r < 9; ++r) k[r] = tab_b[static_cast<size_t>(r) * F_pad];
+  const float lox = tab_b[static_cast<size_t>(ROW_BBOX) * F_pad];
+  const float hix = tab_b[static_cast<size_t>(ROW_BBOX + 1) * F_pad];
+  const float loy = tab_b[static_cast<size_t>(ROW_BBOX + 2) * F_pad];
+  const float hiy = tab_b[static_cast<size_t>(ROW_BBOX + 3) * F_pad];
+
+  const float cull = sqrtf(X_CULL / inv_blur);
+  float acc[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) acc[q] = 0.0f;
+
+  for (int i = 0; i < n_cells; ++i) {
+    if (i + 1 < n_cells)
+      stage_cell(smem4 + ((i + 1) & 1) * npx, dz, dlk, amin, img,
+                 cr.s_lo + (i + 1) / n_x, cr.xb_lo + (i + 1) % n_x, xw, win);
+    else
+      __pipeline_commit();  // empty group: wait_prior(1) below stays right
+    __pipeline_wait_prior(1);
+    __syncthreads();  // cell i's cotangents are visible to every thread
+    const float4* cot = smem4 + (i & 1) * npx;
+    const float x_lo = static_cast<float>((cr.xb_lo + i % n_x) * xw);
+    const float y_lo = static_cast<float>((cr.s_lo + i / n_x) * STRIP_H);
+    for (int rr = 0; rr < ROWS_PER_GROUP; ++rr) {
+      const int row = h * ROWS_PER_GROUP + rr;
+      const float py = y_lo + (static_cast<float>(row) + 0.5f);  // exact
+      const float bby = fmaxf(loy - py, py - hiy);
+      if (bby > cull) continue;
+      // the columns within `cull` of the face's bbox in x
+      const int x_begin = static_cast<int>(
+          ceilf(fmaxf(lox - cull - x_lo - 0.5f, 0.0f)));
+      const int x_end = 1 + static_cast<int>(floorf(
+          fminf(hix + cull - x_lo - 0.5f, static_cast<float>(xw - 1))));
+      // the row's share of plane(), same rounding
+      const float by0 = k[1] * py, by1 = k[4] * py, by2 = k[7] * py;
+      float sx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const float4* crow = cot + row * xw;
+      for (int x = x_begin; x < x_end; ++x) {
+        const float4 c = crow[x];
+        const float xr = static_cast<float>(x) + 0.5f;
+        const float px = x_lo + xr;  // exact: small integers + 0.5
+        const float d0 = k[0] * px + by0 + k[2];
+        const float d1 = k[3] * px + by1 + k[5];
+        const float d2 = k[6] * px + by2 + k[8];
+        const float bb = fmaxf(fmaxf(lox - px, px - hix), bby);
+        const float d = fmaxf(fmaxf(d0, fmaxf(d1, d2)), bb);
+        const float absd = fabsf(d);
+        const float xs = -(d * absd) * inv_blur;
+        if (xs > X_ZERO) {
+          const float sig = sigmoid(xs);
+          const float g = c.y * (sig * inv_blur) * (2.0f * absd);
+          const bool u0 = d == d0;
+          const bool u1 = !u0 && d == d1;
+          const bool u2 = !u0 && !u1 && d == d2;
+          const float g0 = u0 ? g : 0.0f;
+          const float g1 = u1 ? g : 0.0f;
+          const float g2 = u2 ? g : 0.0f;
+          sx[0] += xr * g0; s1[0] += g0;
+          sx[1] += xr * g1; s1[1] += g1;
+          sx[2] += xr * g2; s1[2] += g2;
+        }
+        if (__float_as_int(c.z) == f) {  // the depth winner: gz = dz
+          sx[3] += xr * c.x;
+          s1[3] += c.x;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // rebase sum(x' g) to absolute pixel coords: x = x' + x_lo
+        acc[3 * q] += sx[q] + x_lo * s1[q];
+        acc[3 * q + 1] += py * s1[q];
+        acc[3 * q + 2] += s1[q];
+      }
+    }
+    __syncthreads();  // buffer i & 1 is free for cell i + 2
+  }
+
+  // the row groups' sums, added in the order h = 0, 1 and stored once
+  float* red = reinterpret_cast<float*>(smem4);
+  float* mine = red + (static_cast<size_t>(h) * FACE_CHUNK + l) * RED_STRIDE;
+#pragma unroll
+  for (int q = 0; q < 12; ++q) mine[q] = acc[q];
   __syncthreads();
-
-  const float* tab_b = tab + static_cast<size_t>(b) * TAB_ROWS * F_pad;
-  const float* agg_b = agg + static_cast<size_t>(b) * nc * 4;
-  const int* list =
-      lists + (static_cast<size_t>(b) * n_strips + c.s) * nc;
-  const int* bnd = bounds + (static_cast<size_t>(b) * n_cells + cell_id) * 2;
-  const int j_lo = bnd[0], j_hi = bnd[1];
-  const int l = threadIdx.x;  // blockDim.x == FACE_CHUNK
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int ch = list[j];
-    if (!chunk_active(agg_b + ch * 4, c)) continue;
-    const int f = ch * FACE_CHUNK + l;
-    float k[9];
+  float* out = dplanes + (static_cast<size_t>(b) * F_pad +
+                          static_cast<size_t>(ch) * FACE_CHUNK) * 12;
+  for (int j = threadIdx.x; j < FACE_CHUNK * 12; j += blockDim.x) {
+    const int fl = j / 12, q = j % 12;
+    float v = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 9; ++r) k[r] = tab_b[static_cast<size_t>(r) * F_pad + f];
-    const float lox = tab_b[static_cast<size_t>(ROW_BBOX) * F_pad + f];
-    const float hix = tab_b[static_cast<size_t>(ROW_BBOX + 1) * F_pad + f];
-    const float loy = tab_b[static_cast<size_t>(ROW_BBOX + 2) * F_pad + f];
-    const float hiy = tab_b[static_cast<size_t>(ROW_BBOX + 3) * F_pad + f];
-
-    float acc[12];
-#pragma unroll
-    for (int q = 0; q < 12; ++q) acc[q] = 0.0f;
-    for (int p = 0; p < c.npx; ++p) {
-      const float xr = static_cast<float>(p % c.xw) + 0.5f;
-      const float yr = static_cast<float>(p / c.xw) + 0.5f;
-      const float px = c.x_lo + xr;  // exact: small integers + 0.5
-      const float py = c.y_lo + yr;
-      const float d0 = plane(k[0], k[1], k[2], px, py);
-      const float d1 = plane(k[3], k[4], k[5], px, py);
-      const float d2 = plane(k[6], k[7], k[8], px, py);
-      const float bb = bbox_dist(lox, hix, loy, hiy, px, py);
-      const float d = fmaxf(fmaxf(d0, fmaxf(d1, d2)), bb);
-      const float absd = fabsf(d);
-      const float sig = sigmoid(-(d * absd) * inv_blur);
-      const float g = s_dlk[p] * (sig * inv_blur) * (2.0f * absd);
-      const bool u0 = d == d0;
-      const bool u1 = !u0 && d == d1;
-      const bool u2 = !u0 && !u1 && d == d2;
-      const float g0 = u0 ? g : 0.0f;
-      const float g1 = u1 ? g : 0.0f;
-      const float g2 = u2 ? g : 0.0f;
-      const float gz = s_amin[p] == f ? s_dz[p] : 0.0f;
-      acc[0] += xr * g0; acc[1] += yr * g0; acc[2] += g0;
-      acc[3] += xr * g1; acc[4] += yr * g1; acc[5] += g1;
-      acc[6] += xr * g2; acc[7] += yr * g2; acc[8] += g2;
-      acc[9] += xr * gz; acc[10] += yr * gz; acc[11] += gz;
-    }
-    float* out = dplanes + (static_cast<size_t>(b) * F_pad + f) * 12;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // rebase sum(x' g) to absolute pixel coords: x = x' + x_lo
-      const float a0 = acc[3 * q] + c.x_lo * acc[3 * q + 2];
-      const float a1 = acc[3 * q + 1] + c.y_lo * acc[3 * q + 2];
-      const float a2 = acc[3 * q + 2];
-      if (a0 != 0.0f) atomicAdd(out + 3 * q, a0);
-      if (a1 != 0.0f) atomicAdd(out + 3 * q + 1, a1);
-      if (a2 != 0.0f) atomicAdd(out + 3 * q + 2, a2);
-    }
+    for (int hh = 0; hh < ROW_SPLIT; ++hh)
+      v += red[(static_cast<size_t>(hh) * FACE_CHUNK + fl) * RED_STRIDE + q];
+    out[j] = v;
   }
 }
 
 }  // namespace mhmocap_raster
 
 extern "C" int mhmocap_raster_bwd(const float* tab, const float* agg,
-                                  const int* lists, const int* bounds,
                                   const float* dz, const float* dlk,
                                   const int* amin, float* dplanes, int B,
                                   int F_pad, int win, int n_xb,
                                   float inv_blur, void* stream) {
   using namespace mhmocap_raster;
-  const int n_cells = (win / STRIP_H) * n_xb;
   const int npx = STRIP_H * (win / n_xb);
-  const size_t shmem = 3 * static_cast<size_t>(npx) * sizeof(float);
-  dim3 grid(n_cells, B);
-  raster_bwd_kernel<<<grid, FACE_CHUNK, shmem,
+  dim3 grid(F_pad / FACE_CHUNK, B);
+  raster_bwd_kernel<<<grid, BWD_THREADS, bwd_shmem_bytes(npx),
                       static_cast<cudaStream_t>(stream)>>>(
-      tab, agg, lists, bounds, dz, dlk, amin, dplanes, F_pad, win, n_xb,
-      inv_blur);
+      tab, agg, dz, dlk, amin, dplanes, F_pad, win, n_xb, inv_blur);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,45 @@ __device__ __forceinline__ bool chunk_active(const float* a, const Cell& c) {
          (a[3] >= c.y_lo);
 }
 
+// The cells a chunk reaches: strips [s_lo, s_hi] x x-blocks
+// [xb_lo, xb_hi] (empty where lo > hi), exactly the cells for which
+// chunk_active holds. The test is separable: a0 < (xb + 1) xw iff
+// xb >= floor(a0 / xw), and a1 >= xb xw iff xb <= floor(a1 / xw); the
+// same in y with STRIP_H. The aggregate is clamped to [-1, win] first
+// (an all-invalid chunk carries +-3e38), which changes no answer.
+// ops/raster_cuda.py:_chunk_cells is the same arithmetic in torch.
+struct CellRange {
+  int s_lo, s_hi, xb_lo, xb_hi;
+};
+
+// floor(a / w) for a in [-1, win]: the float quotient, then one exact
+// integer correction (k * w is a small integer, exact in f32).
+__device__ __forceinline__ int floor_div(float a, int w) {
+  int k = static_cast<int>(floorf(a / static_cast<float>(w)));
+  if (static_cast<float>(k * w) > a) {
+    --k;
+  } else if (static_cast<float>((k + 1) * w) <= a) {
+    ++k;
+  }
+  return k;
+}
+
+__device__ __forceinline__ float clamp_to_window(float v, int win) {
+  return fminf(fmaxf(v, -1.0f), static_cast<float>(win));
+}
+
+__device__ __forceinline__ CellRange chunk_cells(const float* a, int win,
+                                                 int n_xb) {
+  const int xw = win / n_xb;
+  CellRange r;
+  r.xb_lo = max(floor_div(clamp_to_window(a[0], win), xw), 0);
+  r.xb_hi = min(floor_div(clamp_to_window(a[1], win), xw), n_xb - 1);
+  r.s_lo = max(floor_div(clamp_to_window(a[2], win), STRIP_H), 0);
+  r.s_hi = min(floor_div(clamp_to_window(a[3], win), STRIP_H),
+               win / STRIP_H - 1);
+  return r;
+}
+
 // Affine plane evaluation with the plain torch version's rounding:
 // (a * px + b * py) + c, each product and sum rounded (the library is
 // built with --fmad=false so nvcc does not contract into FMAs).

@@ -10,13 +10,19 @@ design answers). This module holds what surrounds them:
     so their soft coverage is exactly 0 and they are never covered),
     pad to a FACE_CHUNK multiple and build the per-chunk
     reach-expanded bbox aggregates;
-  * `_strip_chunk_lists`: per strip, the chunks that overlap it in y,
-    sorted by their bbox x-lo, and per (strip, x-block) cell the exact
-    [lo, hi) slice of that list that can reach the cell in x. The list
-    schedule is exact for any face order; a spatially coherent order
-    (`rasterizer.preorder_faces`, which the Predictor applies) only
-    makes it shorter. The TPU package's band-sorted prologue is not
-    needed;
+  * `_strip_chunk_lists`: the forward's schedule. Per strip, the
+    chunks that overlap it in y, sorted by their bbox x-lo, and per
+    (strip, x-block) cell the exact [lo, hi) slice of that list that
+    can reach the cell in x. The list schedule is exact for any face
+    order; a spatially coherent order (`rasterizer.preorder_faces`,
+    which the Predictor applies) only makes it shorter. The TPU
+    package's band-sorted prologue is not needed;
+  * `_chunk_cells`: the backward's schedule, the rectangle of cells
+    each chunk's aggregate reaches (the kernel computes it itself; this
+    is its arithmetic in torch), and `_active_pairs`, the pairs the
+    forward's schedule visits: the two are the same set. `_pair_work`
+    counts the pixel-face pairs among them whose coverage term is not
+    exactly 0 (what a kernel's bound is computed from);
   * the plain torch version of both kernels, over all faces in face
     chunks (the CPU path, and the reference the card is held to);
   * `RasterPlanes`, the autograd.Function: on a CUDA tensor it
@@ -52,6 +58,9 @@ AGG_XLO, AGG_XHI, AGG_YLO, AGG_YHI = 0, 1, 2, 3
 BIG = 3.0e38
 D_INVALID = 1.0e9
 X_CELL_MIN = 16
+# expf(-x) underflows to 0 in f32 from x ~ 103.97 on, and with it a
+# pair's log-sigmoid (forward) and sigmoid (backward) coverage term
+X_LIVE = 104.0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("raster_fwd.cu", "raster_bwd.cu")
@@ -162,6 +171,83 @@ def _strip_chunk_lists(agg, win: int):
         B, n_strips * n_xb, 2)
     return (order.to(torch.int32).contiguous(),
             bounds.to(torch.int32).contiguous())
+
+
+def _floor_div(a, w: int):
+    """floor(a / w) of a float32 tensor in [-1, win], as int32: the float
+    quotient, then one exact integer correction (raster_common.cuh
+    floor_div)."""
+    k = torch.floor(a / w).to(torch.int32)
+    k = torch.where((k * w).to(a.dtype) > a, k - 1, k)
+    return torch.where(((k + 1) * w).to(a.dtype) <= a, k + 1, k)
+
+
+def _chunk_cells(agg, win: int):
+    """The cells each chunk reaches, as the backward kernel computes them
+    from agg alone (raster_common.cuh chunk_cells): agg (B, nc, 4) ->
+    int32 (B, nc, 4) of (s_lo, s_hi, xb_lo, xb_hi), inclusive, empty
+    where lo > hi. These are exactly the cells whose chunk_active test
+    the chunk passes."""
+    n_strips, n_xb = win // STRIP_H, _n_xb(win)
+    xw = win // n_xb
+    a = agg.clamp(-1.0, float(win))
+    return torch.stack([
+        _floor_div(a[..., AGG_YLO], STRIP_H).clamp(min=0),
+        _floor_div(a[..., AGG_YHI], STRIP_H).clamp(max=n_strips - 1),
+        _floor_div(a[..., AGG_XLO], xw).clamp(min=0),
+        _floor_div(a[..., AGG_XHI], xw).clamp(max=n_xb - 1)], dim=-1)
+
+
+def _active_pairs(agg, lists, bounds, win: int):
+    """The (cell, chunk) pairs the forward kernel visits: per cell, the
+    chunks of its [lo, hi) list slice that pass chunk_active. Returns
+    bool (B, n_cells, nc), indexed by chunk id."""
+    B, nc = agg.shape[:2]
+    n_xb = _n_xb(win)
+    xw = win // n_xb
+    dev = agg.device
+    cell = torch.arange(bounds.shape[1], device=dev)
+    s, xb = cell // n_xb, cell % n_xb
+    j = torch.arange(nc, device=dev)
+    in_slice = (j >= bounds[..., :1]) & (j < bounds[..., 1:])
+    ch = lists[:, s].long()                              # (B, C, nc)
+    a = torch.gather(agg, 1, ch.reshape(B, -1, 1).expand(-1, -1, 4))
+    a = a.reshape(*ch.shape, 4)
+    x_lo = (xb * xw).to(torch.float32)[None, :, None]
+    y_lo = (s * STRIP_H).to(torch.float32)[None, :, None]
+    act = (in_slice & (a[..., AGG_XLO] < x_lo + xw)
+           & (a[..., AGG_XHI] >= x_lo) & (a[..., AGG_YLO] < y_lo + STRIP_H)
+           & (a[..., AGG_YHI] >= y_lo))
+    # each strip's list is a permutation of the chunks
+    return torch.zeros_like(act).scatter_(2, ch, act)
+
+
+def _pair_work(tab, agg, lists, bounds, win: int, inv_blur: float):
+    """The pixel-face pairs of the active (cell, chunk) pairs whose
+    coverage term is not exactly 0, the part of the kernels' work that
+    depends on the data. A pair is live where x = d|d| inv_blur < X_LIVE
+    (the forward's log-sigmoid and the backward's sigmoid of x are 0 in
+    f32 above it) and covered where d <= 0. Returns (live, covered,
+    live rows): the last counts the (body, window row, face) triples
+    with a live pair, whose y terms are evaluated once per row."""
+    B, _, F_pad = tab.shape
+    n_xb = _n_xb(win)
+    xw = win // n_xb
+    active = _active_pairs(agg, lists, bounds, win)
+    px, py = _pixel_grid(win, tab.device)
+    cell = (py.long() // STRIP_H) * n_xb + px.long() // xw
+    live = covered = rows = 0
+    for ch in range(F_pad // FACE_CHUNK):
+        act = active[:, cell, ch][..., None]                 # (B, P, 1)
+        if not bool(act.any()):
+            continue
+        d = _chunk_distances(
+            tab[:, :, ch * FACE_CHUNK:(ch + 1) * FACE_CHUNK], px, py)[-1]
+        lv = act & ((d * torch.abs(d)) * inv_blur < X_LIVE)
+        live += int(lv.sum())
+        covered += int((act & (d <= 0)).sum())
+        rows += int(lv.reshape(B, win, win, -1).any(2).sum())
+    return live, covered, rows
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +385,7 @@ def _library() -> ctypes.CDLL:
     lib.mhmocap_raster_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f,
                                        f, p]
     lib.mhmocap_raster_fwd.restype = i
-    lib.mhmocap_raster_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                       f, p]
+    lib.mhmocap_raster_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.mhmocap_raster_bwd.restype = i
     return lib
 
@@ -359,30 +444,27 @@ def raster_fwd_cuda(tab, agg, lists, bounds, win: int, inv_blur: float,
     return zmin, logkeep, amin
 
 
-def raster_bwd_cuda(tab, agg, lists, bounds, dz, dlk, amin, win: int,
-                    inv_blur: float):
-    """Launch the backward kernel -> d_planes (B, F_pad, 12)."""
+def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
+    """Launch the backward kernel -> d_planes (B, F_pad, 12). The kernel
+    writes every entry once (chunks that reach no cell get zeros), so
+    the output is not zero-filled first."""
     _check_window(win)
     B, _, F_pad = tab.shape
     nc = F_pad // FACE_CHUNK
-    n_strips, n_xb = win // STRIP_H, _n_xb(win)
     dev = tab.device
     if dev.type != "cuda":
         raise ValueError("raster_bwd_cuda needs CUDA tensors")
     _check("tab", tab, torch.float32, (B, TAB_ROWS, nc * FACE_CHUNK), dev)
     _check("agg", agg, torch.float32, (B, nc, 4), dev)
-    _check("lists", lists, torch.int32, (B, n_strips, nc), dev)
-    _check("bounds", bounds, torch.int32, (B, n_strips * n_xb, 2), dev)
     for name, t, dt in (("dz", dz, torch.float32),
                         ("dlk", dlk, torch.float32),
                         ("amin", amin, torch.int32)):
         _check(name, t, dt, (B, win, win), dev)
-    dplanes = torch.zeros((B, F_pad, 12), dtype=torch.float32, device=dev)
+    dplanes = torch.empty((B, F_pad, 12), dtype=torch.float32, device=dev)
     err = _library().mhmocap_raster_bwd(
-        tab.data_ptr(), agg.data_ptr(), lists.data_ptr(),
-        bounds.data_ptr(), dz.data_ptr(), dlk.data_ptr(), amin.data_ptr(),
-        dplanes.data_ptr(), B, F_pad, win, n_xb, float(inv_blur),
-        _stream_ptr(dev))
+        tab.data_ptr(), agg.data_ptr(), dz.data_ptr(), dlk.data_ptr(),
+        amin.data_ptr(), dplanes.data_ptr(), B, F_pad, win, _n_xb(win),
+        float(inv_blur), _stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -422,20 +504,19 @@ class RasterPlanes(torch.autograd.Function):
                 zmin, logkeep, amin = raster_fwd_cuda(
                     tab, agg, lists, bounds, win, inv_blur, znear)
             else:
-                lists = bounds = None
                 zmin, logkeep, amin = raster_fwd_plain(tab, win, inv_blur,
                                                        znear)
             zbuf = torch.where(zmin >= BIG,
                                torch.full_like(zmin, float("inf")), zmin)
             sil = 1.0 - torch.exp(logkeep)
-        # the backward walks the same tables and schedule
-        ctx.save_for_backward(tab, agg, lists, bounds, logkeep, amin)
+        # the backward walks the same tables
+        ctx.save_for_backward(tab, agg, logkeep, amin)
         ctx.win, ctx.inv_blur, ctx.n_faces = win, inv_blur, planes.shape[1]
         return zbuf, sil
 
     @staticmethod
     def backward(ctx, d_zbuf, d_sil):
-        tab, agg, lists, bounds, logkeep, amin = ctx.saved_tensors
+        tab, agg, logkeep, amin = ctx.saved_tensors
         win, inv_blur = ctx.win, ctx.inv_blur
         zero = torch.zeros((), dtype=torch.float32, device=tab.device)
         if d_zbuf is None:
@@ -449,8 +530,8 @@ class RasterPlanes(torch.autograd.Function):
             d_lk = (-torch.exp(logkeep) * d_sil).contiguous()
         with torch.no_grad():
             if tab.is_cuda:
-                dtab = raster_bwd_cuda(tab, agg, lists, bounds, d_z, d_lk,
-                                       amin, win, inv_blur)
+                dtab = raster_bwd_cuda(tab, agg, d_z, d_lk, amin, win,
+                                       inv_blur)
             else:
                 dtab = raster_bwd_plain(tab, d_z, d_lk, amin, win, inv_blur)
         return (dtab[:, :ctx.n_faces], None, None, None, None, None, None,

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import sys
 
-from .config import ConfigContext, parse_args, resolve_device
+from .config import (ConfigContext, parse_args, require_device,
+                     resolve_device)
 from .data.ingestion import load_sequence
 from .engine.predictor import Predictor
 from .models.loader import resolve_smpl_model
@@ -37,10 +38,12 @@ def build_internet_sequence(
     filter_beta=25,
     lagged_conf_decay=1.0,
     id_swap_fix=0.0,
-    device="cpu",
+    device="cuda",
     **_,
 ):
-    """Ingest one video tree. Returns (seq, model on `device`)."""
+    """Ingest one video tree on `device`, the GPU unless the caller
+    passes device="cpu". Returns (seq, model on `device`)."""
+    device = require_device(device)
     frame_ids = (list(range(start_frame, end_frame, step_frame))
                  if end_frame > -1 else None)
     model = resolve_smpl_model(smpl_model_parameters_path).to(device)

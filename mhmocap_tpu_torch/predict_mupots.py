@@ -19,7 +19,8 @@ import os
 import pickle
 import sys
 
-from .config import ConfigContext, parse_args, resolve_device
+from .config import (ConfigContext, parse_args, require_device,
+                     resolve_device)
 from .data import mupots
 from .data.ingestion import load_sequence
 from .engine.predictor import Predictor
@@ -43,12 +44,14 @@ def build_mupots_sequence(
     filter_beta=25,
     lagged_conf_decay=1.0,
     id_swap_fix=0.0,
-    device="cpu",
+    device="cuda",
     timings=None,
     **_,
 ):
-    """Ingest one MuPoTs TS sequence and its GT. Returns (seq, model on
+    """Ingest one MuPoTs TS sequence and its GT on `device`, the GPU
+    unless the caller passes device="cpu". Returns (seq, model on
     `device`, pose3d_gt, pose3d_univ_gt, visibility)."""
+    device = require_device(device)
     data_root = os.path.join(data_path, f"TS{ts_id}")
     annot, occl, cam_K_ts = mupots.load_sequence_metadata(
         os.path.join(data_root, "images"))

@@ -58,7 +58,8 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     full-size bodies: z-buffer and winners exact (same operation order,
     no FMA contraction), log-coverage to 1e-5 relative (sums of up to
     hundreds over the faces, in another order), d_planes to 1e-5
-    relative norm (the atomics sum in another order)."""
+    relative norm (the pixel sums run in another order) and
+    bit-identical from one launch to the next."""
     tab, agg, lists, bounds, inv_blur, rng = _tables(cuda_device, win, win)
     before = dict(TC.RasterPlanes.launches)
     zk, lk, ak = TC.raster_fwd_cuda(tab, agg, lists, bounds, win, inv_blur,
@@ -69,12 +70,51 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     assert torch.allclose(lk, lp, rtol=1e-5, atol=1e-5)
     dz = t(rng.randn(3, win, win)).to(cuda_device)
     dlk = t(rng.randn(3, win, win)).to(cuda_device)
-    gk = TC.raster_bwd_cuda(tab, agg, lists, bounds, dz, dlk, ak, win,
-                            inv_blur)
+    gk = TC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win, inv_blur)
     gp = TC.raster_bwd_plain(tab, dz, dlk, ak, win, inv_blur)
     assert rel_err(n(gk), n(gp)) < 1e-5
+    assert torch.equal(TC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win,
+                                          inv_blur), gk)
     assert TC.RasterPlanes.launches["fwd"] == before["fwd"] + 1
-    assert TC.RasterPlanes.launches["bwd"] == before["bwd"] + 1
+    assert TC.RasterPlanes.launches["bwd"] == before["bwd"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["Predictor", "load_sequence"])
+def test_python_entry_points_default_to_the_card(cuda_device, tmp_path,
+                                                 monkeypatch, entry):
+    """Called without `device`, the Predictor fits on the card (its
+    device, its body's tensors and the raster kernels' launches) and
+    load_sequence decodes into card tensors."""
+    from mhmocap_tpu_torch.data import ingestion
+    from mhmocap_tpu_torch.data.synthetic import generate_sequence
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.models.smpl import joints_function
+    from mhmocap_tpu_torch.workload import bench_args, make_ts1_like_seq
+    model = make_synthetic_smpl(num_vertices=512, seed=1)
+    if entry == "Predictor":
+        seq, _ = make_ts1_like_seq(T=8, N=2, side=128, model=model)
+        pred = Predictor(seq, model, str(tmp_path), bench_args(1, None, 64))
+        assert pred.device.type == "cuda"
+        assert pred.model.faces.device.type == "cuda"
+        before = dict(TC.RasterPlanes.launches)
+        pred.run(verbose=False)
+        assert all(TC.RasterPlanes.launches[k] > before[k] for k in before)
+        return
+    generate_sequence(str(tmp_path / "TS1"), num_frames=4, num_people=2,
+                      image_size=(96, 96), model=model, seed=3)
+    seen, orig = [], ingestion.load_images
+
+    def load_images(*a, **k):
+        seen.append(torch.device(k["device"]))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ingestion, "load_images", load_images)
+    seq = ingestion.load_sequence(str(tmp_path / "TS1"),
+                                  joints_function(model, "joints_alphapose"),
+                                  verbose=False)
+    assert [d.type for d in seen] == ["cuda"]
+    assert seq.num_frames == 4 and np.isfinite(seq.pose2d).all()
 
 
 @pytest.mark.cuda

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import yaml
 
-from test_torch_predictor import _assert_pickle_close
+from test_torch_predictor import _assert_pickle_close, make_args
 from torch_parity import torch_model_of
 
 import mhmocap_tpu.eval_mupots as JEM
@@ -22,6 +22,8 @@ import mhmocap_tpu.predict_mupots as JPM
 import mhmocap_tpu_torch.eval_mupots as TEM
 import mhmocap_tpu_torch.predict_internet as TPI
 import mhmocap_tpu_torch.predict_mupots as TPM
+from mhmocap_tpu_torch.data import ingestion as TI
+from mhmocap_tpu_torch.engine import predictor as TPr
 from mhmocap_tpu.data.synthetic import generate_sequence
 from mhmocap_tpu.eval.mupots_eval import compute_mm_pck_results as jax_mm
 from mhmocap_tpu.models.smpl import smpl_forward
@@ -154,6 +156,56 @@ def test_entry_points_need_a_gpu_unless_device_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(["--configs_yml", cfg] + extra)
     assert not os.listdir(tmp_path)
+
+
+ENTRY_KW = dict(smpl_model_parameters_path="/nonexistent-synthetic",
+                depth_path="DPT_large_monodepth", use_hrnet_pose=False,
+                joint_confidence_thr=0.5, renormalize_depth=False,
+                post_process_depth=False)
+
+
+@pytest.mark.parametrize("entry", ["Predictor", "build_mupots_sequence",
+                                   "build_internet_sequence",
+                                   "load_sequence"])
+def test_python_entry_points_default_to_the_gpu(runs, tmp_path, entry):
+    """No silent CPU fallback in the Python entry points either: without
+    a GPU, each one called without `device` raises, naming
+    device="cpu", before it writes anything; the same call with
+    device="cpu" runs. With a GPU, tests/test_torch_cuda.py checks that
+    the default runs on it."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    _, jm, _, root, _ = runs
+    tm = torch_model_of(jm)
+    ts1, out = os.path.join(root, "TS1"), str(tmp_path / "out")
+
+    def predictor(**dev):
+        seq, _ = TPI.build_internet_sequence(ts1, device="cpu", **ENTRY_KW)
+        return TPr.Predictor(seq, tm, out, make_args(), **dev)
+
+    calls = {
+        "Predictor": predictor,
+        "build_mupots_sequence": lambda **dev: TPM.build_mupots_sequence(
+            root, 1, **ENTRY_KW, **dev),
+        "build_internet_sequence": lambda **dev: TPI.build_internet_sequence(
+            ts1, **ENTRY_KW, **dev),
+        "load_sequence": lambda **dev: TI.load_sequence(
+            ts1, joints_function(tm, "joints_alphapose"), verbose=False,
+            **dev),
+    }
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TPM, "resolve_smpl_model", lambda path: tm)
+        mp.setattr(TPI, "resolve_smpl_model", lambda path: tm)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            calls[entry]()
+        assert not os.path.exists(out)
+        got = calls[entry](device="cpu")
+    if entry == "Predictor":
+        assert got.device == torch.device("cpu") and os.path.isdir(out)
+    else:
+        seq = got[0] if isinstance(got, tuple) else got
+        assert seq.num_frames == 6 and np.isfinite(seq.pose2d).all()
 
 
 def test_predict_internet_matches(runs, tmp_path):

@@ -61,7 +61,7 @@ SCRIPT = textwrap.dedent("""
         reg_contact_coef=0.001, reg_foot_sliding_coef=0.01,
         raster_window=32)
     with tempfile.TemporaryDirectory() as tmp:
-        pred = predictor.Predictor(seq, model, tmp, args)
+        pred = predictor.Predictor(seq, model, tmp, args, device="cpu")
         pred.run(verbose=False)
     cfg = E.EngineConfig(**{{**pred.cfg.__dict__, "warmup_cycles": 0,
                              "update_filters_every": 1}})

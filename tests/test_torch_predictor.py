@@ -81,7 +81,7 @@ def runs(tmp_path_factory):
     jpred = JPr.Predictor(JSeq(**kw), jm, dirs["jax"], make_args())
     jpred.run(verbose=False)
     tpred = TPr.Predictor(TSeq(**kw), torch_model_of(jm), dirs["torch"],
-                          make_args())
+                          make_args(), device="cpu")
     tpred.run(verbose=False)
 
     def jax_init(model, *a, **k):
@@ -92,7 +92,8 @@ def runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TE, "init_params", jax_init)
         TPr.Predictor(TSeq(**kw), torch_model_of(jm),
-                      dirs["torch_jax_init"], make_args()).run(verbose=False)
+                      dirs["torch_jax_init"], make_args(),
+                      device="cpu").run(verbose=False)
     out = {"cfg": (jpred.cfg, tpred.cfg)}
     for name, d in dirs.items():
         out[name] = {}
@@ -152,4 +153,4 @@ def test_unported_options_raise(tmp_path, option):
     jm = make_synthetic_smpl(num_vertices=384, seed=1)
     with pytest.raises(NotImplementedError):
         TPr.Predictor(TSeq(**seq_arrays(jm)), torch_model_of(jm),
-                      str(tmp_path), make_args(**option))
+                      str(tmp_path), make_args(**option), device="cpu")

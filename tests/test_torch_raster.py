@@ -267,13 +267,25 @@ def test_vertex_gradients_match_brute(body):
     assert rel_err(n(v.grad), g_ref) < 1e-3
 
 
-def test_wrapper_routes_by_device():
-    """A CPU tensor runs the plain version and launches nothing; the
-    launchers refuse CPU tensors; a window off the 8-px grid raises."""
+def test_wrapper_routes_by_device(monkeypatch):
+    """A CPU tensor runs the plain version, forward and backward, and
+    launches nothing; the launchers refuse CPU tensors; a window off the
+    8-px grid raises."""
     st, planes, ext = _tri_planes()
     before = dict(TC.RasterPlanes.launches)
-    TC.raster_planes(t(np.asarray(planes))[None], _torch_ext(ext), 32,
-                     1.0 / st.sil_blur_px2, st.znear)
+    plain_bwd, orig = [], TC.raster_bwd_plain
+
+    def counted_bwd(*a, **k):
+        plain_bwd.append(a[0].device)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(TC, "raster_bwd_plain", counted_bwd)
+    p = t(np.asarray(planes))[None].requires_grad_(True)
+    z, s = TC.raster_planes(p, _torch_ext(ext), 32, 1.0 / st.sil_blur_px2,
+                            st.znear)
+    s.sum().backward()
+    assert plain_bwd == [torch.device("cpu")]
+    assert torch.isfinite(p.grad).all() and bool((p.grad != 0).any())
     assert TC.RasterPlanes.launches == before
     tab = torch.zeros((1, 16, 128))
     agg = torch.zeros((1, 1, 4))
@@ -281,6 +293,129 @@ def test_wrapper_routes_by_device():
         TC.raster_fwd_cuda(tab, agg, torch.zeros((1, 4, 1), dtype=torch.int32),
                            torch.zeros((1, 8, 2), dtype=torch.int32), 32, 1.0,
                            1.0)
+    img = torch.zeros((1, 32, 32))
+    with pytest.raises(ValueError):
+        TC.raster_bwd_cuda(tab, agg, img, img, img.to(torch.int32), 32, 1.0)
     with pytest.raises(ValueError):
         TC.raster_planes(t(np.asarray(planes))[None], _torch_ext(ext), 36,
                          1.0, 1.0)
+
+
+def _full_body_agg(win, invalid_chunk=1):
+    """Chunk aggregates of 3 posed full-size bodies (faces preordered, as
+    the Predictor orders them) in a 256x256 image at the depth that
+    fills `win`; body 0 has every face of chunk `invalid_chunk` marked
+    invalid, so that chunk carries the +-3e38 empty aggregate."""
+    from mhmocap_tpu_torch.models.smpl import smpl_forward
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl as tm
+    model = TR.preorder_faces(tm())
+    rng = np.random.RandomState(win)
+    transl = np.zeros((3, 3), np.float32)
+    transl[:, 2] = 3.4 * 160 / win
+    transl[:, :2] = 0.05 * rng.randn(3, 2)
+    st = TR.RasterSettings(image_size=(256, 256), window=win)
+    with torch.no_grad():
+        v = smpl_forward(model, torch.zeros((3, 10)),
+                         t(0.1 * rng.randn(3, 72)), t(transl))["verts"]
+        uvz = TR.project_points(v, t(intrinsics_from_fov((256, 256), 60.0)),
+                                return_depth=True)
+        origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
+        fuvz = uvz[:, model.faces]
+        planes, bbox, oks, okd = TR.face_planes(
+            fuvz[..., :2] - origin[:, None, None].float(), fuvz[..., 2],
+            st.znear)
+    c = TC.FACE_CHUNK
+    oks[0, invalid_chunk * c:(invalid_chunk + 1) * c] = False
+    reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
+    _, agg = TC._tables(planes, bbox, bbox[..., 2] - reach,
+                        bbox[..., 3] + reach, oks, okd,
+                        1.0 / st.sil_blur_px2)
+    return agg
+
+
+def _rect_mask(cells, win):
+    """(B, nc, 4) cell ranges of _chunk_cells -> bool (B, n_cells, nc)."""
+    n_xb = TC._n_xb(win)
+    cell = torch.arange((win // TC.STRIP_H) * n_xb)
+    s, xb = (cell // n_xb)[None, :, None], (cell % n_xb)[None, :, None]
+    r = cells[:, None].long()
+    return ((s >= r[..., 0]) & (s <= r[..., 1]) & (xb >= r[..., 2])
+            & (xb <= r[..., 3]))
+
+
+@pytest.mark.parametrize("win", [32, 48])
+def test_pair_work_counts_the_live_pairs(body, win):
+    """_pair_work against a brute-force count over every pixel-face pair
+    of the fixture's bodies, in numpy: the pairs of active (cell, chunk)
+    pairs (the 4-scalar chunk_active test written out) whose coverage
+    term d|d| inv_blur lies below X_LIVE, those with d <= 0, and the
+    (body, row, face) triples with a live pair. The live pairs are a
+    strict part of the active cells' pairs."""
+    st, items = _planes_inputs(body, win)
+    args = [_jax_tables(fuv, fz, st) for fuv, fz in items]
+    reach = args[0][1]
+    tab, agg = TC._fold_pack(*[
+        t(np.stack([np.asarray(a[0][i]) for a in args]),
+          torch.bool if args[0][0][i].dtype == jnp.bool_ else torch.float32)
+        for i in range(6)], reach)
+    inv_blur = 1.0 / st.sil_blur_px2
+    lists, bounds = TC._strip_chunk_lists(agg, win)
+    got = TC._pair_work(tab, agg, lists, bounds, win, inv_blur)
+
+    tb, ag = n(tab), n(agg)
+    p = np.arange(win * win)
+    px = (p % win).astype(np.float32) + np.float32(0.5)
+    py = (p // win).astype(np.float32) + np.float32(0.5)
+    xw = win // TC._n_xb(win)
+    x_lo = ((p % win) // xw * xw).astype(np.float32)[None, :, None]
+    y_lo = ((p // win) // 8 * 8).astype(np.float32)[None, :, None]
+    a = np.repeat(ag, TC.FACE_CHUNK, axis=1)[:, None]     # (B, 1, F_pad, 4)
+    act = ((a[..., 0] < x_lo + xw) & (a[..., 1] >= x_lo)
+           & (a[..., 2] < y_lo + 8) & (a[..., 3] >= y_lo))
+    x, y = px[None, :, None], py[None, :, None]
+
+    def row(r):
+        return tb[:, r][:, None, :]
+
+    d0, d1, d2 = (row(3 * k) * x + row(3 * k + 1) * y + row(3 * k + 2)
+                  for k in range(3))
+    bb = np.maximum(np.maximum(row(12) - x, x - row(13)),
+                    np.maximum(row(14) - y, y - row(15)))
+    d = np.maximum(np.maximum(d0, np.maximum(d1, d2)), bb)
+    live = act & ((d * np.abs(d)) * np.float32(inv_blur) < TC.X_LIVE)
+    B, F_pad = tb.shape[0], tb.shape[2]
+    ref = (int(live.sum()), int((act & (d <= 0)).sum()),
+           int(live.reshape(B, win, win, F_pad).any(2).sum()))
+    assert got == ref
+    assert 0 < ref[1] < ref[0] < int(act.sum()) and ref[2] > 0
+
+
+@pytest.mark.parametrize("win", [80, 112, 120, 128, 160])
+def test_chunk_cells_match_cell_major_schedule(win):
+    """The backward kernel's chunk-major cells (_chunk_cells, from the
+    aggregates alone) are exactly the (cell, chunk) pairs the forward's
+    cell-major schedule visits (_strip_chunk_lists + chunk_active): on
+    full-size preordered bodies with an all-invalid chunk, at the main
+    path's windows and at 120 px (20-px cells), and on random
+    aggregates whose edges sit on and one ulp beside cell borders."""
+    agg = _full_body_agg(win)
+    rng = np.random.RandomState(win)
+    nc = agg.shape[1]
+    xw = win // TC._n_xb(win)
+    edges = np.concatenate([np.arange(-1, win + 2) * w for w in (xw, 8)])
+    a = rng.choice(edges, (2, nc, 4)).astype(np.float32)
+    a = np.where(rng.rand(2, nc, 4) < 0.5, a,
+                 np.nextafter(a, np.where(rng.rand(2, nc, 4) < 0.5,
+                                          np.float32(-np.inf),
+                                          np.float32(np.inf))))
+    a[0, :3] = [TC.BIG, -TC.BIG, TC.BIG, -TC.BIG]
+    agg = torch.cat([agg, t(a)])
+    lists, bounds = TC._strip_chunk_lists(agg, win)
+    ref = TC._active_pairs(agg, lists, bounds, win)
+    cells = TC._chunk_cells(agg, win)
+    got = _rect_mask(cells, win)
+    assert torch.equal(got, ref)
+    assert int(ref[:3].sum()) > 3 * nc                 # the bodies' pairs
+    assert not ref[0, :, 1].any() and not got[0, :, 1].any()
+    assert bool((cells[0, 1, 0] > cells[0, 1, 1])
+                | (cells[0, 1, 2] > cells[0, 1, 3]))
