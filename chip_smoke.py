@@ -9,14 +9,16 @@ Phases (any failure raises, so the process exits non-zero):
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
      ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
-     at every raster call shape of phases 4 and 6 (KERNEL_SHAPES: 29
-     posed full-size bodies per call at windows 160/128/112, 30 at
-     160/112/80; errors printed beside their bounds), two backward
-     launches bit-identical, then timed against the plain version on
-     the same inputs; prints the active (cell, chunk) pairs (the
-     forward's cell-major schedule, held equal to the backward's
-     chunk-major cells), the pixel-face pairs among them whose
-     coverage term is not 0, and each kernel's bound on that work and
+     at every raster call shape of phases 4 and 6
+     (workload.KERNEL_SHAPES: 29 posed full-size bodies per call at
+     windows 160/128/112, 30 at 160/112/80; errors printed beside their
+     bounds), the forward's log1pf shortcut checked, two forward and
+     two backward launches bit-identical, then timed against the plain
+     version on the same inputs; prints the active (cell, chunk) pairs
+     (the JAX package's cell-major schedule, held equal to the
+     backward's chunk-major cells) and the chunks per active cell, the
+     pixel-face pairs among them whose coverage term is not 0 and those
+     the forward's cull keeps, and each kernel's bound on that work and
      its share of it;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
@@ -38,8 +40,9 @@ Phases (any failure raises, so the process exits non-zero):
      the pickles against the JAX package's schema, finite metrics, a
      pck_rel of at least 95 per tree and, as phase 4, the raster call
      shapes against phase 3's.
-The line before the last is a JSON object with one entry per kernel;
-the last line is {"ok": true, "device": {...}}.
+The last three lines are a JSON object with one entry per kernel,
+nvidia-smi's name and power limit of the card, and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -52,15 +55,6 @@ import time
 import numpy as np
 import torch
 
-# The raster calls of the main paths as (bodies per call, windows): a
-# cycle makes one call per window per chunk, and every person has a
-# window of its own in both. Phase 4 (bench-ts1): chunk 29, windows
-# 160/128/112; phase 6 (the entry trees): chunk 30, windows 160/112/80
-# (TS1) and 160/112 (TS2). Phase 3 checks the kernels at each shape,
-# and phases 4 and 6 fail on a call outside this set.
-KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)))
-# body depth whose projection fills each window (bench placement)
-WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
 NUM_CYCLES = 52
 
 # The kernels must agree with the plain version to rounding: the
@@ -149,58 +143,13 @@ def phase_build():
     return dt
 
 
-def _posed_tables(model, win, n_bodies, seed, device):
-    """Folded tables and schedule of n_bodies posed bodies at the depth
-    that fills `win` in a 256x256 image."""
-    from mhmocap_tpu_torch.models.smpl import smpl_forward
-    from mhmocap_tpu_torch.ops import raster_cuda as RC
-    from mhmocap_tpu_torch.ops import rasterizer as R
-    from mhmocap_tpu_torch.ops.cameras import intrinsics_from_fov, \
-        project_points
-    rng = np.random.RandomState(seed)
-    poses = torch.as_tensor(0.1 * rng.randn(n_bodies, 72), dtype=torch.float32,
-                            device=device)
-    transl = np.zeros((n_bodies, 3), np.float32)
-    transl[:, 2] = WINDOW_DEPTH[win]
-    transl[:, :2] = 0.05 * rng.randn(n_bodies, 2)
-    with torch.no_grad():
-        v = smpl_forward(model, torch.zeros((n_bodies, 10), device=device),
-                         poses, transl=torch.as_tensor(transl, device=device))
-        st = R.RasterSettings(image_size=(256, 256), window=win)
-        K = torch.as_tensor(intrinsics_from_fov((256, 256), 60.0),
-                            device=device)
-        uvz = project_points(v["verts"], K, return_depth=True)
-        origin = R.window_origin(uvz[..., :2], uvz[..., 2], st)
-        fuvz = uvz[:, model.faces]
-        fuv = fuvz[..., :2] - origin[:, None, None, :].float()
-        planes, bbox, oks, okd = R.face_planes(fuv, fuvz[..., 2], st.znear)
-        reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
-        inv_blur = 1.0 / st.sil_blur_px2
-        tab, agg = RC._tables(planes, bbox, bbox[..., 2] - reach,
-                              bbox[..., 3] + reach, oks, okd, inv_blur)
-        lists, bounds = RC._strip_chunk_lists(agg, win)
-    return tab, agg, lists, bounds, inv_blur, st.znear
-
-
-def _cuda_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def _raster_calls(cfg):
     """(bodies per call, window) of the raster calls of a cycle."""
     return {(cfg.chunk * len(ns), w) for w, ns in cfg.window_groups}
 
 
 def _check_raster_calls(cfg, where):
+    from mhmocap_tpu_torch.workload import KERNEL_SHAPES
     calls = _raster_calls(cfg)
     checked = {(b, w) for b, wins in KERNEL_SHAPES for w in wins}
     print(f"[{where}] raster calls (bodies, window): {sorted(calls)}",
@@ -215,6 +164,8 @@ def phase_kernels():
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
     from mhmocap_tpu_torch.ops import raster_cuda as RC
     from mhmocap_tpu_torch.ops.rasterizer import preorder_faces
+    from mhmocap_tpu_torch.workload import (KERNEL_SHAPES, cuda_ms,
+                                            posed_raster_tables)
     dev = torch.device("cuda")
     # the faces in the Predictor's static spatial order, as on the main
     # path (the schedule is exact for any order; a coherent order gives
@@ -223,15 +174,23 @@ def phase_kernels():
     print(f"[3 kernels] body V={model.num_vertices} F={model.num_faces} "
           f"(faces preordered), (bodies per call, windows) {KERNEL_SHAPES}",
           flush=True)
+    bad = RC.log1p_shortcut_mismatches(dev)
+    print(f"[3 kernels] log1pf(e) != e for {bad} floats e in [0, "
+          f"expf(-19)] (the forward's shortcut needs 0)", flush=True)
+    if bad:
+        raise AssertionError("the forward's log1pf shortcut is not exact")
     errs = {"fwd": 0.0, "bwd": 0.0}
     timing = {}
     for B, win in ((b, w) for b, wins in KERNEL_SHAPES for w in wins):
-        tab, agg, lists, bounds, inv_blur, znear = _posed_tables(
+        tab, agg, lists, bounds, inv_blur, znear = posed_raster_tables(
             model, win, B, seed=win, device=dev)
-        zk, lk, ak = RC.raster_fwd_cuda(tab, agg, lists, bounds, win,
-                                        inv_blur, znear)
+        zk, lk, ak = RC.raster_fwd_cuda(tab, agg, win, inv_blur, znear)
+        again = RC.raster_fwd_cuda(tab, agg, win, inv_blur, znear)
         zp, lp, ap = RC.raster_fwd_plain(tab, win, inv_blur, znear)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(again, (zk, lk, ak))):
+            raise AssertionError(f"B={B} window {win}: two forward launches "
+                                 f"on the same inputs differ")
         ck, cp = zk < RC.BIG, zp < RC.BIG
         both = ck & cp
         res = {
@@ -274,10 +233,13 @@ def phase_kernels():
             raise AssertionError(f"B={B} window {win}: a body covers no "
                                  f"pixel")
 
-        # the work: active (cell, chunk) pairs of the forward's
-        # cell-major schedule, which must be the backward's chunk-major
-        # cells exactly
-        pairs = int(RC._active_pairs(agg, lists, bounds, win).sum())
+        # the work: active (cell, chunk) pairs of the JAX package's
+        # cell-major schedule (the set the forward kernel visits), which
+        # must be the backward's chunk-major cells exactly
+        active = RC._active_pairs(agg, lists, bounds, win)
+        pairs = int(active.sum())
+        per_cell = active.sum(-1)
+        per_cell = per_cell[per_cell > 0].float()
         cells = RC._chunk_cells(agg, win).long()
         chunk_major = int(((cells[..., 1] - cells[..., 0] + 1).clamp(min=0)
                            * (cells[..., 3] - cells[..., 2] + 1).clamp(min=0))
@@ -289,22 +251,23 @@ def phase_kernels():
         pix_face = pairs * RC.STRIP_H * (win // RC._n_xb(win)) * RC.FACE_CHUNK
         live, covered, rows = RC._pair_work(tab, agg, lists, bounds, win,
                                             inv_blur)
+        evaluated = RC._fwd_work(tab, agg, lists, bounds, win, inv_blur)
         n = {"live": live, "covered": covered, "rows": rows,
              "winners": int((ak >= 0).sum())}
         work = {   # (operations, bytes) per call
             k: (sum(ops * n[c] for c, ops in OPS[k].items()), nbytes)
             for k, nbytes in (
-                ("fwd", _nbytes(tab, agg, lists, bounds, zk, lk, ak)),
+                ("fwd", _nbytes(tab, agg, zk, lk, ak)),
                 ("bwd", _nbytes(tab, agg, dz, dlk, ak, gk)))}
         bound = {k: _bound(*v) for k, v in work.items()}
         t = {
-            "plain_fwd": _cuda_ms(lambda: RC.raster_fwd_plain(
+            "plain_fwd": cuda_ms(lambda: RC.raster_fwd_plain(
                 tab, win, inv_blur, znear), 2),
-            "fwd": _cuda_ms(lambda: RC.raster_fwd_cuda(
-                tab, agg, lists, bounds, win, inv_blur, znear), 20),
-            "bwd": _cuda_ms(lambda: RC.raster_bwd_cuda(
+            "fwd": cuda_ms(lambda: RC.raster_fwd_cuda(
+                tab, agg, win, inv_blur, znear), 20),
+            "bwd": cuda_ms(lambda: RC.raster_bwd_cuda(
                 tab, agg, dz, dlk, ak, win, inv_blur), 20),
-            "plain_bwd": _cuda_ms(lambda: RC.raster_bwd_plain(
+            "plain_bwd": cuda_ms(lambda: RC.raster_bwd_plain(
                 tab, dz, dlk, ak, win, inv_blur), 2),
         }
         timing[B, win] = dict(t, pairs=pairs, live=live, bound=bound)
@@ -313,10 +276,15 @@ def phase_kernels():
               f"bwd {t['bwd']:.3f} ms (plain {t['plain_bwd']:.3f})",
               flush=True)
         print(f"[3 kernels] work B={B} win {win}: {pairs} active (cell, "
-              f"chunk) pairs holding {pix_face} pixel-face pairs, of which "
-              f"{live} live ({live / pix_face:.3f}) and {covered} covered; "
-              f"{rows} live (body, row, face) rows; {n['winners']} depth "
-              f"winners", flush=True)
+              f"chunk) pairs in {per_cell.numel()} of "
+              f"{active.shape[0] * active.shape[1]} (body, cell)s, "
+              f"{float(per_cell.mean()):.2f} chunks per active cell (max "
+              f"{int(per_cell.max())}), holding {pix_face} "
+              f"pixel-face pairs, of which {live} live "
+              f"({live / pix_face:.3f}) and {covered} covered; the forward "
+              f"evaluates {evaluated} ({evaluated / pix_face:.3f}) after its "
+              f"cull; {rows} live (body, row, face) rows; {n['winners']} "
+              f"depth winners", flush=True)
         print(f"[3 kernels] bound B={B} win {win}: "
               + ", ".join(f"{k} {work[k][0] / 1e9:.3f} GFLOP and "
                           f"{work[k][1] / 1e6:.1f} MB, bound "

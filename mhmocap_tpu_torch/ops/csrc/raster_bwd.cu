@@ -59,12 +59,9 @@ constexpr int ROW_SPLIT = 2;                          // row groups per cell
 constexpr int ROWS_PER_GROUP = STRIP_H / ROW_SPLIT;   // 4
 constexpr int BWD_THREADS = ROW_SPLIT * FACE_CHUNK;   // 256
 constexpr int RED_STRIDE = 13;                        // 12 sums + 1 pad
-// -d|d| inv_blur at or below X_ZERO: expf is 0, and so is the pair's
-// silhouette gradient. The bbox cull uses the distance
-// sqrt(X_CULL / inv_blur): with X_CULL > -X_ZERO a culled pair stays
-// below X_ZERO through the rounding of the column bounds.
-constexpr float X_ZERO = -110.0f;
-constexpr float X_CULL = 111.0f;
+// X_ZERO and X_CULL (raster_common.cuh): the bbox cull uses the distance
+// sqrt(X_CULL / inv_blur); a pair with -d|d| inv_blur <= X_ZERO has a
+// silhouette gradient of exactly 0.
 
 // sigmoid(x) as the stable two-sided form 1 / (1 + e^-x) for x >= 0 and
 // e^x / (1 + e^x) below, with one expf and no branch: both sides divide

@@ -12,6 +12,16 @@ constexpr int FACE_CHUNK = 128;  // faces per scheduled chunk
 constexpr int TAB_ROWS = 16;     // 12 folded plane coefficients + 4 bbox
 constexpr int ROW_BBOX = 12;     // rows 12..15: lox, hix, loy, hiy
 constexpr float BIG = 3.0e38f;
+// Where a pixel-face pair's coverage term is exactly 0: for
+// x = d|d| inv_blur at or above -X_ZERO, expf(-x) is 0 (below -104 its
+// value is under half the least subnormal; between -104 and -87 it is a
+// subnormal, whose log1pf is not 0), so the forward's log-sigmoid of x
+// and the backward's sigmoid of -x are 0, and d > 0 covers nothing. The
+// kernels cull by the bbox distance, a lower bound of d, beyond
+// sqrt(X_CULL / inv_blur): with X_CULL > -X_ZERO a culled pair stays past
+// X_ZERO through the rounding of the cull bounds and of d|d| inv_blur.
+constexpr float X_ZERO = -110.0f;
+constexpr float X_CULL = 111.0f;
 
 // Cell geometry shared by both kernels: cell = s * n_xb + xb covers
 // rows [8 s, 8 s + 8) and columns [xb xw, xb xw + xw) of the window.

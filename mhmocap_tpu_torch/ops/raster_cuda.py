@@ -10,19 +10,22 @@ design answers). This module holds what surrounds them:
     so their soft coverage is exactly 0 and they are never covered),
     pad to a FACE_CHUNK multiple and build the per-chunk
     reach-expanded bbox aggregates;
-  * `_strip_chunk_lists`: the forward's schedule. Per strip, the
-    chunks that overlap it in y, sorted by their bbox x-lo, and per
-    (strip, x-block) cell the exact [lo, hi) slice of that list that
-    can reach the cell in x. The list schedule is exact for any face
-    order; a spatially coherent order (`rasterizer.preorder_faces`,
-    which the Predictor applies) only makes it shorter. The TPU
-    package's band-sorted prologue is not needed;
-  * `_chunk_cells`: the backward's schedule, the rectangle of cells
-    each chunk's aggregate reaches (the kernel computes it itself; this
-    is its arithmetic in torch), and `_active_pairs`, the pairs the
-    forward's schedule visits: the two are the same set. `_pair_work`
-    counts the pixel-face pairs among them whose coverage term is not
-    exactly 0 (what a kernel's bound is computed from);
+  * the schedule, which both kernels derive from the aggregates alone
+    (no table, no sort before a launch): the forward tests each chunk
+    against its cell with `chunk_active`, in chunk-id order; the
+    backward takes the rectangle of cells each chunk reaches
+    (`_chunk_cells` is its arithmetic in torch). The two are the same
+    (cell, chunk) set. `_strip_chunk_lists` is the counterpart of the
+    JAX package's schedule (x-sorted per-strip lists and per-cell
+    slices), held equal to it by the tests; `_active_pairs` reads the
+    visited set from it, and `_pair_work` counts the pixel-face pairs
+    in it whose coverage term is not exactly 0 (what a kernel's bound
+    is computed from);
+  * `_fwd_cull`: the forward kernel's exact cull in torch. Per chunk,
+    each warp drops the faces whose bbox distance to the warp's pixel
+    rectangle, or whose invalid mark, puts every pixel of it where the
+    term is exactly 0 and nothing is covered; `_fwd_work` counts the
+    pixel-face pairs the kernel still evaluates;
   * the plain torch version of both kernels, over all faces in face
     chunks (the CPU path, and the reference the card is held to);
   * `RasterPlanes`, the autograd.Function: on a CUDA tensor it
@@ -61,6 +64,11 @@ X_CELL_MIN = 16
 # expf(-x) underflows to 0 in f32 from x ~ 103.97 on, and with it a
 # pair's log-sigmoid (forward) and sigmoid (backward) coverage term
 X_LIVE = 104.0
+# the kernels' cull line (raster_common.cuh X_CULL): a pair whose bbox
+# distance exceeds sqrt(X_CULL / inv_blur) has x past 110
+X_CULL = 111.0
+# the forward kernel: a warp owns 8 columns of a cell, all its rows
+FWD_WARP_COLS = 8
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("raster_fwd.cu", "raster_bwd.cu")
@@ -250,6 +258,71 @@ def _pair_work(tab, agg, lists, bounds, win: int, inv_blur: float):
     return live, covered, rows
 
 
+def _fwd_warp_rects(win: int, device):
+    """The forward kernel's warps (raster_fwd.cu): warp w of a chunk
+    group owns columns FWD_WARP_COLS w .. FWD_WARP_COLS (w + 1) - 1 and
+    all STRIP_H rows of its cell. Returns the pixel-centre rectangle
+    (x_a, x_b, y_a, y_b) of each (cell, warp), float32 (n_cells, W, 4),
+    and each window pixel's (cell, warp) index, int64 (P,) in row-major
+    pixel order."""
+    n_strips, n_xb = win // STRIP_H, _n_xb(win)
+    xw = win // n_xb
+    W = -(-xw // FWD_WARP_COLS)
+    c0 = torch.arange(W, device=device) * FWD_WARP_COLS
+    c1 = torch.clamp(c0 + FWD_WARP_COLS, max=xw) - 1
+    cell = torch.arange(n_strips * n_xb, device=device)[:, None]
+    x0, y0 = (cell % n_xb) * xw, (cell // n_xb) * STRIP_H
+    y_a = y0.expand(-1, W)
+    rect = torch.stack([x0 + c0, x0 + c1, y_a, y_a + STRIP_H - 1],
+                       -1).to(torch.float32) + 0.5
+    p = torch.arange(win * win, device=device)
+    y, x = p // win, p % win
+    return rect, ((y // STRIP_H) * n_xb + x // xw) * W \
+        + (x % xw) // FWD_WARP_COLS
+
+
+def _fwd_cull(t, win: int, inv_blur: float):
+    """The pixel-face pairs of a table slice t (B, 16, cs) that the
+    forward kernel keeps: bool (B, P, cs). A warp drops a face for all
+    its pixels where the face's bbox distance to the warp's rectangle (a
+    lower bound of d at each of them, in the kernel's rounding) exceeds
+    sqrt(X_CULL / inv_blur), or where the face carries the invalid mark
+    (d_0 equal to its constant, above that distance): there the term is
+    exactly 0 and d > 0."""
+    rect, pix = _fwd_warp_rects(win, t.device)
+    f32 = torch.float32
+    cull = torch.sqrt(torch.tensor(X_CULL, dtype=f32)
+                      / torch.tensor(inv_blur, dtype=f32)).to(t.device)
+    r = rect[None, ..., None]                            # (1, C, W, 4, 1)
+
+    def row(k):
+        return t[:, k][:, None, None, :]                 # (B, 1, 1, cs)
+    bb_min = torch.maximum(
+        torch.maximum(row(12) - r[..., 1, :], r[..., 0, :] - row(13)),
+        torch.maximum(row(14) - r[..., 3, :], r[..., 2, :] - row(15)))
+    invalid = (row(0) == 0) & (row(1) == 0) & (row(2) > cull)
+    keep = ~((bb_min > cull) | invalid)                  # (B, C, W, cs)
+    return keep.reshape(t.shape[0], -1, t.shape[2])[:, pix]
+
+
+def _fwd_work(tab, agg, lists, bounds, win: int, inv_blur: float):
+    """The pixel-face pairs the forward kernel evaluates: those of the
+    active (cell, chunk) pairs that its cull keeps."""
+    n_xb = _n_xb(win)
+    xw = win // n_xb
+    active = _active_pairs(agg, lists, bounds, win)
+    px, py = _pixel_grid(win, tab.device)
+    cell = (py.long() // STRIP_H) * n_xb + px.long() // xw
+    kept = 0
+    for ch in range(tab.shape[2] // FACE_CHUNK):
+        act = active[:, cell, ch][..., None]                 # (B, P, 1)
+        if bool(act.any()):
+            kept += int((act & _fwd_cull(
+                tab[:, :, ch * FACE_CHUNK:(ch + 1) * FACE_CHUNK], win,
+                inv_blur)).sum())
+    return kept
+
+
 # ---------------------------------------------------------------------------
 # Plain torch version of the kernel pair
 # ---------------------------------------------------------------------------
@@ -380,13 +453,18 @@ def build_kernels() -> Tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()[0]))
+    return _bind(ctypes.CDLL(str(build_kernels()[0])))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from csrc/."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mhmocap_raster_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f,
-                                       f, p]
+    lib.mhmocap_raster_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
     lib.mhmocap_raster_fwd.restype = i
     lib.mhmocap_raster_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.mhmocap_raster_bwd.restype = i
+    lib.mhmocap_raster_log1p_check.argtypes = [p, p]
+    lib.mhmocap_raster_log1p_check.restype = i
     return lib
 
 
@@ -406,42 +484,65 @@ def _check_window(win: int):
     if win % STRIP_H:
         raise ValueError(f"raster window {win} is not a multiple of "
                          f"{STRIP_H}")
-    if STRIP_H * (win // _n_xb(win)) > 1024:
+    # the forward's chunk group: a warp per FWD_WARP_COLS columns
+    if 32 * -(-(win // _n_xb(win)) // FWD_WARP_COLS) > 512:
         raise ValueError(f"raster window {win}: its {win // _n_xb(win)} "
-                         f"px cells exceed 1024 threads per block")
+                         f"px cells exceed 512 threads per block")
+    if win // STRIP_H * _n_xb(win) > 65535:
+        raise ValueError(f"raster window {win}: more cells than the "
+                         f"forward's 65535 grid rows")
 
 
 def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def raster_fwd_cuda(tab, agg, lists, bounds, win: int, inv_blur: float,
-                    znear: float):
-    """Launch the forward kernel -> (zmin, logkeep, amin) (B, win, win)."""
+def raster_fwd_cuda(tab, agg, win: int, inv_blur: float, znear: float):
+    """Launch the forward kernel -> (zmin, logkeep, amin) (B, win, win).
+    The kernel finds each cell's chunks from agg itself and writes every
+    pixel once."""
+    out = _launch_fwd(tab, agg, win, inv_blur, znear)
+    RasterPlanes.launches["fwd"] += 1
+    return out
+
+
+def _launch_fwd(tab, agg, win: int, inv_blur: float, znear: float,
+                lib=None):
+    """Check the inputs, then launch the forward kernel of `lib` (a
+    library bound by _bind; the one built from csrc/ by default)."""
     _check_window(win)
     B, _, F_pad = tab.shape
     nc = F_pad // FACE_CHUNK
-    n_strips, n_xb = win // STRIP_H, _n_xb(win)
     dev = tab.device
     if dev.type != "cuda":
         raise ValueError("raster_fwd_cuda needs CUDA tensors")
     _check("tab", tab, torch.float32, (B, TAB_ROWS, nc * FACE_CHUNK), dev)
     _check("agg", agg, torch.float32, (B, nc, 4), dev)
-    _check("lists", lists, torch.int32, (B, n_strips, nc), dev)
-    _check("bounds", bounds, torch.int32, (B, n_strips * n_xb, 2), dev)
     zmin = torch.empty((B, win, win), dtype=torch.float32, device=dev)
     logkeep = torch.empty_like(zmin)
     amin = torch.empty((B, win, win), dtype=torch.int32, device=dev)
-    err = _library().mhmocap_raster_fwd(
-        tab.data_ptr(), agg.data_ptr(), lists.data_ptr(),
-        bounds.data_ptr(), zmin.data_ptr(), logkeep.data_ptr(),
-        amin.data_ptr(), B, F_pad, win, n_xb, float(inv_blur),
+    err = (lib or _library()).mhmocap_raster_fwd(
+        tab.data_ptr(), agg.data_ptr(), zmin.data_ptr(), logkeep.data_ptr(),
+        amin.data_ptr(), B, F_pad, win, _n_xb(win), float(inv_blur),
         float(znear), _stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster forward kernel launch failed: CUDA "
                            f"error {err}")
-    RasterPlanes.launches["fwd"] += 1
     return zmin, logkeep, amin
+
+
+def log1p_shortcut_mismatches(device) -> int:
+    """The floats e in [0, expf(-19)] whose log1pf on the card is not e
+    itself, bit for bit. The forward kernel takes log_sigmoid(x) as
+    -expf(-x) where x >= 20 (raster_fwd.cu X_TINY), which is exact only
+    if there are none."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    err = _library().mhmocap_raster_log1p_check(bad.data_ptr(),
+                                                _stream_ptr(device))
+    if err != 0:
+        raise RuntimeError(f"log1pf check kernel launch failed: CUDA "
+                           f"error {err}")
+    return int(bad)
 
 
 def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
@@ -500,9 +601,8 @@ class RasterPlanes(torch.autograd.Function):
             tab, agg = _tables(planes, bbox, lo_y, hi_y, ok_sil, ok_depth,
                                inv_blur)
             if planes.is_cuda:
-                lists, bounds = _strip_chunk_lists(agg, win)
-                zmin, logkeep, amin = raster_fwd_cuda(
-                    tab, agg, lists, bounds, win, inv_blur, znear)
+                zmin, logkeep, amin = raster_fwd_cuda(tab, agg, win,
+                                                      inv_blur, znear)
             else:
                 zmin, logkeep, amin = raster_fwd_plain(tab, win, inv_blur,
                                                        znear)

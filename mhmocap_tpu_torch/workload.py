@@ -4,7 +4,9 @@ Port of `bench.py`'s `ts1_poses_T` and `make_ts1_like_seq`: T=201
 frames, N=3 people, 256x256 images, built with the port's SMPL and
 camera functions from a fixed seed. With `raster_window=160` the
 Predictor sizes it to per-person windows (160, 128, 112) on the full
-synthetic body (6890 vertices, 12672 faces).
+synthetic body (6890 vertices, 12672 faces). `posed_raster_tables`
+builds the raster kernels' inputs at the main paths' call shapes
+(`KERNEL_SHAPES`), for measuring the kernels alone.
 """
 
 from __future__ import annotations
@@ -17,9 +19,19 @@ import torch
 from .data.ingestion import SequenceArrays
 from .models.smpl import smpl_forward
 from .models.synthetic import make_synthetic_smpl
+from .ops import raster_cuda as RC
+from .ops import rasterizer as R
 from .ops.cameras import intrinsics_from_fov, project_points
 
 T, N, SIDE, WINDOW = 201, 3, 256, 160
+# The raster calls of the main paths as (bodies per call, windows): a
+# cycle makes one call per window per chunk, and every person has a
+# window of its own in both. chip_smoke.py phase 4 (bench-ts1): chunk
+# 29, windows 160/128/112; phase 6 (the entry trees): chunk 30, windows
+# 160/112/80 (TS1) and 160/112 (TS2).
+KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)))
+# body depth whose projection fills each window (bench placement)
+WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
 
 
 def bench_args(num_iter, bench_cycles=None, window=WINDOW, verbose=False):
@@ -85,3 +97,47 @@ def make_ts1_like_seq(T=T, N=N, side=SIDE, model=None):
         cam={"K": K, "fov": 60.0, "Kd": None, "image_size": (side, side)},
     )
     return seq, model
+
+
+@torch.no_grad()
+def posed_raster_tables(model, win, n_bodies, seed, device):
+    """The raster kernels' inputs for n_bodies posed bodies at the depth
+    that fills `win` in a 256x256 image: (tab, agg, lists, bounds,
+    inv_blur, znear), with the JAX package's schedule (lists, bounds),
+    from which the work is counted."""
+    rng = np.random.RandomState(seed)
+    poses = torch.as_tensor(0.1 * rng.randn(n_bodies, 72), dtype=torch.float32,
+                            device=device)
+    transl = np.zeros((n_bodies, 3), np.float32)
+    transl[:, 2] = WINDOW_DEPTH[win]
+    transl[:, :2] = 0.05 * rng.randn(n_bodies, 2)
+    v = smpl_forward(model, torch.zeros((n_bodies, 10), device=device),
+                     poses, transl=torch.as_tensor(transl, device=device))
+    st = R.RasterSettings(image_size=(256, 256), window=win)
+    K = torch.as_tensor(intrinsics_from_fov((256, 256), 60.0), device=device)
+    uvz = project_points(v["verts"], K, return_depth=True)
+    origin = R.window_origin(uvz[..., :2], uvz[..., 2], st)
+    fuvz = uvz[:, model.faces]
+    fuv = fuvz[..., :2] - origin[:, None, None, :].float()
+    planes, bbox, oks, okd = R.face_planes(fuv, fuvz[..., 2], st.znear)
+    reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
+    inv_blur = 1.0 / st.sil_blur_px2
+    tab, agg = RC._tables(planes, bbox, bbox[..., 2] - reach,
+                          bbox[..., 3] + reach, oks, okd, inv_blur)
+    lists, bounds = RC._strip_chunk_lists(agg, win)
+    return tab, agg, lists, bounds, inv_blur, st.znear
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of fn on the current CUDA stream over reps calls after one
+    warm-up call, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps

@@ -47,8 +47,7 @@ def _tables(dev, win, seed):
         inv_blur = 1.0 / st.sil_blur_px2
         tab, agg = TC._tables(planes, bbox, bbox[..., 2] - reach,
                               bbox[..., 3] + reach, oks, okd, inv_blur)
-        lists, bounds = TC._strip_chunk_lists(agg, win)
-    return tab, agg, lists, bounds, inv_blur, rng
+    return tab, agg, inv_blur, rng
 
 
 @pytest.mark.cuda
@@ -58,16 +57,18 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     full-size bodies: z-buffer and winners exact (same operation order,
     no FMA contraction), log-coverage to 1e-5 relative (sums of up to
     hundreds over the faces, in another order), d_planes to 1e-5
-    relative norm (the pixel sums run in another order) and
+    relative norm (the pixel sums run in another order); each kernel
     bit-identical from one launch to the next."""
-    tab, agg, lists, bounds, inv_blur, rng = _tables(cuda_device, win, win)
+    tab, agg, inv_blur, rng = _tables(cuda_device, win, win)
     before = dict(TC.RasterPlanes.launches)
-    zk, lk, ak = TC.raster_fwd_cuda(tab, agg, lists, bounds, win, inv_blur,
-                                    1.0)
+    zk, lk, ak = TC.raster_fwd_cuda(tab, agg, win, inv_blur, 1.0)
     zp, lp, ap = TC.raster_fwd_plain(tab, win, inv_blur, 1.0)
     assert bool((zk < TC.BIG).any())
     assert torch.equal(zk, zp) and torch.equal(ak, ap)
     assert torch.allclose(lk, lp, rtol=1e-5, atol=1e-5)
+    for a, b in zip(TC.raster_fwd_cuda(tab, agg, win, inv_blur, 1.0),
+                    (zk, lk, ak)):
+        assert torch.equal(a, b)
     dz = t(rng.randn(3, win, win)).to(cuda_device)
     dlk = t(rng.randn(3, win, win)).to(cuda_device)
     gk = TC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win, inv_blur)
@@ -75,8 +76,15 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     assert rel_err(n(gk), n(gp)) < 1e-5
     assert torch.equal(TC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win,
                                           inv_blur), gk)
-    assert TC.RasterPlanes.launches["fwd"] == before["fwd"] + 1
+    assert TC.RasterPlanes.launches["fwd"] == before["fwd"] + 2
     assert TC.RasterPlanes.launches["bwd"] == before["bwd"] + 2
+
+
+@pytest.mark.cuda
+def test_cuda_log1p_shortcut_is_exact(cuda_device):
+    """log1pf(e) == e bit for bit for every float e in [0, expf(-19)],
+    so the forward kernel's -expf(-x) for x >= 20 is its log-sigmoid."""
+    assert TC.log1p_shortcut_mismatches(cuda_device) == 0
 
 
 @pytest.mark.cuda

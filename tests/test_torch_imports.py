@@ -30,7 +30,8 @@ SCRIPT = textwrap.dedent("""
     import mhmocap_tpu_torch
     from mhmocap_tpu_torch import (config, convert, eval_mupots, io,
                                    predict_internet, predict_mupots,
-                                   profile_cycle, sweep, workload)
+                                   profile_cycle, raster_ablation, sweep,
+                                   workload)
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
                                         mupots, romp)
     from mhmocap_tpu_torch.data import synthetic as synthetic_tree

@@ -290,9 +290,7 @@ def test_wrapper_routes_by_device(monkeypatch):
     tab = torch.zeros((1, 16, 128))
     agg = torch.zeros((1, 1, 4))
     with pytest.raises(ValueError):
-        TC.raster_fwd_cuda(tab, agg, torch.zeros((1, 4, 1), dtype=torch.int32),
-                           torch.zeros((1, 8, 2), dtype=torch.int32), 32, 1.0,
-                           1.0)
+        TC.raster_fwd_cuda(tab, agg, 32, 1.0, 1.0)
     img = torch.zeros((1, 32, 32))
     with pytest.raises(ValueError):
         TC.raster_bwd_cuda(tab, agg, img, img, img.to(torch.int32), 32, 1.0)
@@ -301,22 +299,24 @@ def test_wrapper_routes_by_device(monkeypatch):
                          1.0, 1.0)
 
 
-def _full_body_agg(win, invalid_chunk=1):
-    """Chunk aggregates of 3 posed full-size bodies (faces preordered, as
-    the Predictor orders them) in a 256x256 image at the depth that
-    fills `win`; body 0 has every face of chunk `invalid_chunk` marked
-    invalid, so that chunk carries the +-3e38 empty aggregate."""
+def _full_body_tables(win, n_bodies=3, invalid_chunk=1):
+    """Folded tables and chunk aggregates of posed full-size bodies
+    (faces preordered, as the Predictor orders them) in a 256x256 image
+    at the depth that fills `win`; body 0 has every face of chunk
+    `invalid_chunk` marked invalid, so that chunk carries the +-3e38
+    empty aggregate. Returns (tab, agg, inv_blur)."""
     from mhmocap_tpu_torch.models.smpl import smpl_forward
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl as tm
     model = TR.preorder_faces(tm())
     rng = np.random.RandomState(win)
-    transl = np.zeros((3, 3), np.float32)
+    transl = np.zeros((n_bodies, 3), np.float32)
     transl[:, 2] = 3.4 * 160 / win
-    transl[:, :2] = 0.05 * rng.randn(3, 2)
+    transl[:, :2] = 0.05 * rng.randn(n_bodies, 2)
     st = TR.RasterSettings(image_size=(256, 256), window=win)
     with torch.no_grad():
-        v = smpl_forward(model, torch.zeros((3, 10)),
-                         t(0.1 * rng.randn(3, 72)), t(transl))["verts"]
+        v = smpl_forward(model, torch.zeros((n_bodies, 10)),
+                         t(0.1 * rng.randn(n_bodies, 72)),
+                         t(transl))["verts"]
         uvz = TR.project_points(v, t(intrinsics_from_fov((256, 256), 60.0)),
                                 return_depth=True)
         origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
@@ -327,10 +327,10 @@ def _full_body_agg(win, invalid_chunk=1):
     c = TC.FACE_CHUNK
     oks[0, invalid_chunk * c:(invalid_chunk + 1) * c] = False
     reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
-    _, agg = TC._tables(planes, bbox, bbox[..., 2] - reach,
-                        bbox[..., 3] + reach, oks, okd,
-                        1.0 / st.sil_blur_px2)
-    return agg
+    inv_blur = 1.0 / st.sil_blur_px2
+    tab, agg = TC._tables(planes, bbox, bbox[..., 2] - reach,
+                          bbox[..., 3] + reach, oks, okd, inv_blur)
+    return tab, agg, inv_blur
 
 
 def _rect_mask(cells, win):
@@ -398,7 +398,7 @@ def test_chunk_cells_match_cell_major_schedule(win):
     full-size preordered bodies with an all-invalid chunk, at the main
     path's windows and at 120 px (20-px cells), and on random
     aggregates whose edges sit on and one ulp beside cell borders."""
-    agg = _full_body_agg(win)
+    agg = _full_body_tables(win)[1]
     rng = np.random.RandomState(win)
     nc = agg.shape[1]
     xw = win // TC._n_xb(win)
@@ -419,3 +419,66 @@ def test_chunk_cells_match_cell_major_schedule(win):
     assert not ref[0, :, 1].any() and not got[0, :, 1].any()
     assert bool((cells[0, 1, 0] > cells[0, 1, 1])
                 | (cells[0, 1, 2] > cells[0, 1, 3]))
+
+
+@pytest.mark.parametrize("win, n_bodies", [(48, 3), (64, 3), (96, 3),
+                                           (160, 2)])
+def test_fwd_cull_drops_only_zero_terms(win, n_bodies):
+    """The forward kernel's cull rule (_fwd_cull) on posed full-size
+    bodies, one chunk all invalid: every pixel-face pair it drops has a
+    plain per-pair coverage term of exactly 0.0 and d > 0, and every
+    live and covered pair that _pair_work counts among the active (cell,
+    chunk) pairs is one it keeps; _fwd_work counts the rest. It drops
+    more than a tenth of the active pairs' pixel-face pairs (12.5% at 48
+    px, where a body is 3-4 cells wide, 40% at 160 px)."""
+    tab, agg, inv_blur = _full_body_tables(win, n_bodies)
+    lists, bounds = TC._strip_chunk_lists(agg, win)
+    active = TC._active_pairs(agg, lists, bounds, win)
+    n_xb = TC._n_xb(win)
+    px, py = TC._pixel_grid(win, tab.device)
+    cell = (py.long() // TC.STRIP_H) * n_xb + px.long() // (win // n_xb)
+    live = covered = dropped = n_active = 0
+    for ch in range(tab.shape[2] // TC.FACE_CHUNK):
+        part = tab[:, :, ch * TC.FACE_CHUNK:(ch + 1) * TC.FACE_CHUNK]
+        drop = ~TC._fwd_cull(part, win, inv_blur)
+        d = TC._chunk_distances(part, px, py)[-1]
+        x = (d * torch.abs(d)) * inv_blur
+        term = torch.nn.functional.logsigmoid(x)[drop]
+        assert torch.equal(term, torch.zeros_like(term))
+        assert bool((d[drop] > 0).all())
+        act = active[:, cell, ch][..., None]
+        live += int((act & ~drop & (x < TC.X_LIVE)).sum())
+        covered += int((act & ~drop & (d <= 0)).sum())
+        dropped += int((act & drop).sum())
+        n_active += int(act.sum()) * TC.FACE_CHUNK
+    assert (live, covered) == TC._pair_work(tab, agg, lists, bounds, win,
+                                            inv_blur)[:2]
+    assert TC._fwd_work(tab, agg, lists, bounds, win, inv_blur) \
+        == n_active - dropped
+    assert dropped > n_active // 10
+
+
+@pytest.mark.parametrize("name", ["no_cull", "one_group", "neither",
+                                  "no_tiny"])
+def test_ablation_variants_edit_the_kernel(name):
+    """Each variant of the forward kernel's ablation script applies its
+    edits to the kernel source once each and changes it."""
+    from mhmocap_tpu_torch import raster_ablation as A
+    assert A.variant_source(name) != A.variant_source("kernel")
+
+
+def test_posed_raster_tables_match_the_plain_schedule():
+    """workload.posed_raster_tables (the kernels' inputs at the main
+    paths' call shapes) on 2 posed full-size bodies at 80 px: tables of
+    the folded layout whose JAX-package schedule visits exactly the
+    backward's chunk-major cells, and whose bodies cover pixels."""
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl as tm
+    from mhmocap_tpu_torch.workload import posed_raster_tables
+    model = TR.preorder_faces(tm())
+    tab, agg, lists, bounds, inv_blur, znear = posed_raster_tables(
+        model, 80, 2, seed=80, device=torch.device("cpu"))
+    assert tab.shape == (2, TC.TAB_ROWS, 99 * TC.FACE_CHUNK)
+    ref = TC._active_pairs(agg, lists, bounds, 80)
+    assert torch.equal(_rect_mask(TC._chunk_cells(agg, 80), 80), ref)
+    zmin = TC.raster_fwd_plain(tab, 80, inv_blur, znear)[0]
+    assert bool(((zmin < TC.BIG).reshape(2, -1).sum(-1) > 100).all())
