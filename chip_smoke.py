@@ -9,17 +9,18 @@ Phases (any failure raises, so the process exits non-zero):
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
      ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
-     at every raster call shape of phases 4 and 6
-     (workload.KERNEL_SHAPES: 29 posed full-size bodies per call at
-     windows 160/128/112, 30 at 160/112/80; errors printed beside their
-     bounds), the forward's log1pf shortcut checked, two forward and
-     two backward launches bit-identical, then timed against the plain
-     version on the same inputs; prints the active (cell, chunk) pairs
-     (the JAX package's cell-major schedule, held equal to the
-     backward's chunk-major cells) and the chunks per active cell, the
-     pixel-face pairs among them whose coverage term is not 0 and those
-     the forward's cull keeps, and each kernel's bound on that work and
-     its share of it;
+     at every raster call shape of phases 4, 6 and 7
+     (workload.KERNEL_SHAPES: posed full-size bodies, 29 per call at
+     windows 160/128/112, 30 at 160/112/80, and phase 7's; errors
+     printed beside their bounds), the forward's log1pf shortcut
+     checked, two forward and two backward launches bit-identical, then,
+     at the shapes of phases 4 and 6, timed against the plain version on
+     the same inputs; prints the active (cell, chunk) pairs (the JAX
+     package's cell-major schedule, held equal to the backward's
+     chunk-major cells) and the chunks per active cell, the pixel-face
+     pairs among them whose coverage term is not 0 and those the
+     forward's cull keeps, and each kernel's bound on that work and its
+     share of it;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
      so that the scene rebuild (cycle 30) and the One-Euro refresh
@@ -37,9 +38,25 @@ Phases (any failure raises, so the process exits non-zero):
      `eval_mupots.main` over both; prints the raster launches per tree,
      the ingestion seconds (decode / post-process / assignment), the
      init and per-cycle seconds and the FinalResults averages; checks
-     the pickles against the JAX package's schema, finite metrics, a
-     pck_rel of at least 95 per tree and, as phase 4, the raster call
-     shapes against phase 3's.
+     the pickles against the JAX package's schema, finite metrics, each
+     tree's pck_rel against its measured floor (ENTRY_MIN_PCK) and, as
+     phase 4, the raster call shapes against phase 3's;
+  7. shipped config: writes one degraded tree (the sweep's combined
+     degradation plan: crossing paths, a person leaving the frame, an
+     ID switch, detection and ROMP dropout, so that stale frames exist;
+     32 frames, 3 people, 2048x2048) and runs `predict_mupots.main` with
+     configs/predict_mupots_robust.yml unedited (250 cycles,
+     resize_factor 0.125, gap_aware_temporal, id_swap_fix 0.5,
+     post_process_depth, save_visualizations), then `eval_mupots.main`;
+     prints the launches, the ingestion split, the per-cycle median
+     (CUDA events between cycles), the seconds of the two exports and
+     the FinalResults averages; checks stale frames, a live
+     reg_gap_accel, both kernels launched, the visualization files and
+     pickle, finite metrics and the raster call shapes;
+  8. checkpoint and trace: a tiny sequence runs 4 cycles unbroken (with
+     a profiler trace of cycle 2) and again as 2 + 2 cycles with
+     checkpoint_every=1; the resumed run's stage-1 pickle and losses
+     must equal the unbroken run's bit for bit, and the trace must exist.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -164,8 +181,8 @@ def phase_kernels():
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
     from mhmocap_tpu_torch.ops import raster_cuda as RC
     from mhmocap_tpu_torch.ops.rasterizer import preorder_faces
-    from mhmocap_tpu_torch.workload import (KERNEL_SHAPES, cuda_ms,
-                                            posed_raster_tables)
+    from mhmocap_tpu_torch.workload import (KERNEL_SHAPES, TIMED_SHAPES,
+                                            cuda_ms, posed_raster_tables)
     dev = torch.device("cuda")
     # the faces in the Predictor's static spatial order, as on the main
     # path (the schedule is exact for any order; a coherent order gives
@@ -232,6 +249,8 @@ def phase_kernels():
         if int(covered.min()) == 0:
             raise AssertionError(f"B={B} window {win}: a body covers no "
                                  f"pixel")
+        if (B, win) not in TIMED_SHAPES:
+            continue
 
         # the work: active (cell, chunk) pairs of the JAX package's
         # cell-major schedule (the set the forward kernel visits), which
@@ -500,7 +519,13 @@ ENTRY_SCHEMA = {
                          "cam_K"},
 }
 ENTRY_TREES = ((1, 3), (2, 2))       # (TS id, people)
-ENTRY_FRAMES, ENTRY_CYCLES, ENTRY_MIN_PCK = 60, 100, 95.0
+ENTRY_FRAMES, ENTRY_CYCLES = 60, 100
+# pck_rel floor per tree: the lowest of three phase-6 runs less one
+# point. Three runs on an H100 80GB HBM3 at 700.00 W (nvidia-smi) read
+# 97.5 (TS1) and 100.0 (TS2) every time: trees, kernels and fit are
+# deterministic. TS1 sits below the clean sweep's 98.5, which bounds
+# the 5-tree average; the same tree reads 97.74 in that sweep.
+ENTRY_MIN_PCK = {1: 96.5, 2: 99.0}
 
 
 def phase_entry_points(tmp):
@@ -560,11 +585,189 @@ def phase_entry_points(tmp):
           flush=True)
     if not all(np.isfinite(v).all() for v in final.values()):
         raise AssertionError(f"non-finite metrics: {final}")
-    low = [p for p in final["pck_rel"][:-1] if not p >= ENTRY_MIN_PCK]
+    low = [(ts, p) for (ts, _), p in zip(ENTRY_TREES, final["pck_rel"])
+           if not p >= ENTRY_MIN_PCK[ts]]
     if low:
-        raise AssertionError(f"pck_rel {final['pck_rel'][:-1]} below "
+        raise AssertionError(f"(TS, pck_rel) {low} below the floors "
                              f"{ENTRY_MIN_PCK}")
     return launches
+
+
+# Phase 7: the robust profile's shipped config on a degraded tree. The
+# combined degradation plan is the one with stale frames: in the others
+# ingestion refreshes every dropped detection from the ROMP projection.
+# The tree is written at 2048x2048 so that the config's resize_factor
+# 0.125 gives 256x256; 32 frames (one chunk of 32, as a long sequence's
+# 16-48) keep the host JPEG encode and decode of the full-size frames
+# within the smoke's time.
+ROBUST_CONFIG = "configs/predict_mupots_robust.yml"
+ROBUST_TS, ROBUST_PEOPLE, ROBUST_FRAMES, ROBUST_SIDE = 5, 3, 32, 2048
+ROBUST_CYCLES = 250                  # the config's num_iter
+VIS_FILES = {"fig_optim_curves_init.png", "fig_optim_curves_stage1.png",
+             "vis_init", "vis_stage1", "visualization_data_stage1.pkl"}
+VIS_KEYS = {"images", "depths", "backmasks", "cam_smpl", "cam", "verts",
+            "valid", "pose2d"}
+
+
+class CycleClock:
+    """Records a CUDA event after each stage-1 cycle while active, with
+    no host synchronization, so that the per-cycle times of a run whose
+    config sets no bench_cycles can be read afterwards (the card's
+    timeline between consecutive cycles' last work)."""
+
+    def __init__(self):
+        from mhmocap_tpu_torch.engine import optimizer as E
+        self.E, self.cycle, self.events = E, E.stage1_cycle_fused, []
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            out = self.cycle(*args, **kwargs)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return out
+        self.E.stage1_cycle_fused = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.E.stage1_cycle_fused = self.cycle
+
+    def seconds(self) -> np.ndarray:
+        """Seconds of cycles 1.. (cycle 0 has no event before it)."""
+        torch.cuda.synchronize()
+        return np.asarray([a.elapsed_time(b) / 1e3 for a, b in
+                           zip(self.events, self.events[1:])])
+
+
+def phase_shipped_config(tmp):
+    """configs/predict_mupots_robust.yml, unedited, on a degraded tree."""
+    import pickle
+    from mhmocap_tpu_torch import eval_mupots, predict_mupots, sweep
+    from mhmocap_tpu_torch.data.synthetic import generate_sequence
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    t0 = time.time()
+    body = make_synthetic_smpl()
+    generate_sequence(
+        os.path.join(data, f"TS{ROBUST_TS}"), num_frames=ROBUST_FRAMES,
+        num_people=ROBUST_PEOPLE, image_size=(ROBUST_SIDE, ROBUST_SIDE),
+        model=body, seed=7 + ROBUST_TS, mupots_gt=True,
+        degradations=sweep.degradation_plan(ROBUST_TS, ROBUST_FRAMES))
+    print(f"[7 robust] wrote TS{ROBUST_TS} ({ROBUST_PEOPLE} people, "
+          f"{ROBUST_FRAMES} frames, {ROBUST_SIDE}x{ROBUST_SIDE}, degraded) "
+          f"in {time.time() - t0:.1f}s", flush=True)
+    for k in RasterPlanes.launches:
+        RasterPlanes.launches[k] = 0
+    t0 = time.time()
+    with CycleClock() as clock:
+        summary = predict_mupots.main(
+            ["--configs_yml", ROBUST_CONFIG, "--ts_id", str(ROBUST_TS),
+             "--input_path", data, "--output_path", out,
+             "--device", "cuda"])
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(RasterPlanes.launches)
+    cfg = summary["engine_config"]
+    _check_raster_calls(cfg, "7 robust")
+    cyc = clock.seconds()[29:]       # cycles [30, 250)
+    ing = summary["ingest_seconds"]
+    exp = summary["export_seconds"]
+    print(f"[7 robust] T={cfg.num_frames} at {cfg.image_size}, chunk "
+          f"{cfg.chunk}, windows {cfg.person_windows}, gap_aware_temporal "
+          f"{cfg.gap_aware_temporal}; raster launches {launches}; "
+          f"ingestion {ing['total']:.3f}s (decode {ing['decode']:.3f}, "
+          f"post-process {ing['postprocess']:.3f}, assignment "
+          f"{ing['assignment']:.3f}); init solve "
+          f"{summary['init_seconds']:.3f}s; per-cycle median "
+          f"{np.median(cyc):.4f}s over cycles [30, {ROBUST_CYCLES}) (min "
+          f"{cyc.min():.4f}, max {cyc.max():.4f}); exports: init "
+          f"{exp['init']:.3f}s, stage-1 {exp['stage1']:.3f}s; "
+          f"predict_mupots {wall:.1f}s", flush=True)
+    if not cfg.gap_aware_temporal or cfg.image_size != (256, 256):
+        raise AssertionError(f"the robust config did not run as shipped: "
+                             f"{cfg}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a raster kernel never launched: {launches}")
+    ts_dir = os.path.join(out, f"TS{ROBUST_TS}")
+    st1 = _load_pickles(ts_dir, ENTRY_SCHEMA)["optvar_stage1.pkl"]
+    gap = np.asarray([row["reg_gap_accel"] for row in summary["stage1_log"]])
+    print(f"[7 robust] stale person-frames {int(st1['lagged_tn'].sum())}; "
+          f"reg_gap_accel cycle 0 {gap[0]:.6g}, last {gap[-1]:.6g}",
+          flush=True)
+    if not st1["lagged_tn"].any():
+        raise AssertionError("the degraded tree has no stale frame")
+    if len(gap) != ROBUST_CYCLES or not gap.max() > 0:
+        raise AssertionError(f"reg_gap_accel never live: {gap.max()}")
+    names = set(os.listdir(ts_dir))
+    n_vis = {d: len(os.listdir(os.path.join(ts_dir, d)))
+             for d in ("vis_init", "vis_stage1")}
+    if not VIS_FILES <= names or n_vis != {
+            "vis_init": min(ROBUST_FRAMES, 25),
+            "vis_stage1": min(ROBUST_FRAMES, 20)}:
+        raise AssertionError(f"visualization files: {sorted(names)}, "
+                             f"{n_vis}")
+    with open(os.path.join(ts_dir, "visualization_data_stage1.pkl"),
+              "rb") as f:
+        vis = pickle.load(f)
+    if set(vis) != VIS_KEYS or vis["verts"].shape[:2] != (
+            ROBUST_FRAMES, ROBUST_PEOPLE) or not np.isfinite(
+                vis["verts"]).all():
+        raise AssertionError(f"visualization pickle: {sorted(vis)}")
+    final = eval_mupots.main(["--configs_yml", ROBUST_CONFIG,
+                              "--input_path", out, "--device", "cuda"])
+    print("[7 robust] FinalResults averages: " + json.dumps(
+        {k: v[-1] for k, v in final.items()}), flush=True)
+    if not all(np.isfinite(v).all() for v in final.values()):
+        raise AssertionError(f"non-finite metrics: {final}")
+    return launches
+
+
+def phase_checkpoint(tmp):
+    """A tiny sequence: 4 cycles unbroken (profiler trace of cycle 2)
+    against 2 + 2 cycles resumed from a checkpoint, before cycle 30
+    (the aux state, which is not saved, is still its initial value)."""
+    import contextlib
+    import io
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+    from mhmocap_tpu_torch.workload import bench_args, make_ts1_like_seq
+    model = make_synthetic_smpl(num_vertices=512, seed=1)
+    seq, _ = make_ts1_like_seq(T=8, N=2, side=128, model=model)
+
+    def run(name, num_iter, **extra):
+        args = bench_args(num_iter, None, 64)
+        for k, v in extra.items():
+            setattr(args, k, v)
+        pred = Predictor(seq, model, os.path.join(tmp, name), args,
+                         device="cuda")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            pred.run(verbose=False)
+        return pred, printed.getvalue()
+
+    trace_dir = os.path.join(tmp, "trace")
+    whole, _ = run("whole", 4, profile_dir=trace_dir)
+    run("split", 2, checkpoint_every=1)
+    resumed, printed = run("split", 4, checkpoint_every=1)
+    ref, got = (_load_pickles(os.path.join(tmp, d))["optvar_stage1.pkl"]
+                for d in ("whole", "split"))
+    differ = [k for k, v in ref.items() if isinstance(v, np.ndarray)
+              and not np.array_equal(got[k], v)]
+    same_losses = np.array_equal(resumed.stage1_losses,
+                                 whole.stage1_losses[2:])
+    trace = os.path.join(trace_dir, "trace_cycle2.json")
+    size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    print(f"[8 checkpoint] {printed.strip()}; resumed vs unbroken: arrays "
+          f"that differ {differ}, losses of cycles 2-3 equal {same_losses}; "
+          f"trace {trace} {size} bytes", flush=True)
+    if "resumed from checkpoint at cycle 1" not in printed:
+        raise AssertionError("the 4-cycle run did not resume at cycle 1")
+    if differ or not same_losses:
+        raise AssertionError("the resumed run is not bit-identical to the "
+                             "unbroken one")
+    if not size:
+        raise AssertionError("profile_dir wrote no trace")
 
 
 def main():
@@ -576,9 +779,11 @@ def main():
         main_launches = phase_main_path(os.path.join(tmp, "main"))
         phase_reference(os.path.join(tmp, "ref"))
         entry_launches = phase_entry_points(os.path.join(tmp, "entry"))
+        robust_launches = phase_shipped_config(os.path.join(tmp, "robust"))
+        phase_checkpoint(os.path.join(tmp, "ckpt"))
     # the launches of every main-path run, each counted from 0
-    launches = {k: main_launches[k] + sum(v[k] for v in
-                                          entry_launches.values())
+    launches = {k: main_launches[k] + robust_launches[k]
+                + sum(v[k] for v in entry_launches.values())
                 for k in main_launches}
     # times and bounds at B=29, window 160; no single PyTorch call
     # computes either function, so neither has a library time

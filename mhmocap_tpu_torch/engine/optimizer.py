@@ -18,7 +18,10 @@ eager PyTorch:
     `rmsprop_update`); `torch.optim.RMSprop` with `ExponentialLR`
     differs once the learning rate decays.
 
-The robust-profile branch (`gap_aware_temporal`) is not ported yet.
+`EngineConfig.gap_aware_temporal` (the robust profile) widens the chunk
+halo to 2 frames, drops the temporal pairs with a stale endpoint,
+releases the 2D term on stale frames and adds `reg_gap_accel`, as the
+JAX package does; with the flag off the cycle is unchanged.
 """
 
 from __future__ import annotations
@@ -73,13 +76,15 @@ class EngineConfig:
     cam_dist_coef: Optional[Tuple[float, ...]] = None
     pose17j_weights: Optional[Tuple[float, ...]] = None
     frame_bucket: int = 64
+    # the robust profile: stale-aware temporal terms (needs
+    # SeqData.stale_tn; clean sequences are unchanged)
     gap_aware_temporal: bool = False
 
-    def __post_init__(self):
-        if self.gap_aware_temporal:
-            raise NotImplementedError(
-                "gap_aware_temporal (the robust profile) is not ported "
-                "to mhmocap_tpu_torch yet")
+    @property
+    def halo(self) -> int:
+        """Left-halo frames per chunk: 1 for the pair terms, 2 for the
+        gap acceleration stencil."""
+        return 2 if self.gap_aware_temporal else 1
 
     @property
     def padded_frames(self) -> int:
@@ -461,10 +466,11 @@ LOG_KEYS = ("loss_pose24j", "loss_depth", "loss_silhouette",
 
 
 class ChunkInputs(NamedTuple):
-    """One frame chunk [t0, t0+C) with a 1-frame left halo on *_h."""
+    """One frame chunk [t0, t0+C) with a left halo of `cfg.halo` frames
+    on *_h (frames t0-halo .. t0-1, clamped to 0)."""
 
-    poses_T_h: torch.Tensor       # (C+1, N, 1, 3)
-    poses_smpl_h: torch.Tensor    # (C+1, N, 72)
+    poses_T_h: torch.Tensor       # (C+halo, N, 1, 3)
+    poses_smpl_h: torch.Tensor    # (C+halo, N, 72)
     min_z_c: torch.Tensor         # (C, 1, 1)
     max_z_c: torch.Tensor         # (C, 1, 1)
     depths_c: torch.Tensor        # (C, H, W)
@@ -473,20 +479,24 @@ class ChunkInputs(NamedTuple):
     pose2d_c: torch.Tensor        # (C, N, 17, 3)
     ref_poses_c: torch.Tensor     # (C, N, 72)
     valid_smpl_c: torch.Tensor    # (C, N, 1)
-    frame_valid_h: torch.Tensor   # (C+1,)
+    frame_valid_h: torch.Tensor   # (C+halo,)
     global_t: torch.Tensor        # (C,)
     dvf_c: torch.Tensor           # (C, N, V, 3) bf16
+    # (C+2, N) stale-frame mask, only with cfg.gap_aware_temporal
+    stale_h: Optional[torch.Tensor] = None
 
 
 def _slice_chunk(params: StageParams, data: SeqData, aux: StageAux,
                  cfg: EngineConfig, chunk_idx: int) -> ChunkInputs:
-    C = cfg.chunk
+    C, hl = cfg.chunk, cfg.halo
     t0 = chunk_idx * C
     dev = params.poses_T.device
-    halo_idx = torch.clamp(t0 - 1 + torch.arange(C + 1, device=dev), min=0)
+    halo_idx = torch.clamp(t0 - hl + torch.arange(C + hl, device=dev), min=0)
     c = slice(t0, t0 + C)
     min_z, max_z = z_bounds_of(params, cfg)
     return ChunkInputs(
+        stale_h=(data.stale_tn[halo_idx] if cfg.gap_aware_temporal
+                 else None),
         poses_T_h=params.poses_T[halo_idx],
         poses_smpl_h=params.poses_smpl[halo_idx],
         min_z_c=min_z[c],
@@ -508,21 +518,44 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
                      cfg: EngineConfig):
     """Loss of one frame chunk -> (scalar loss, parts (10,)). Covers the
     per-frame terms and the chunk's (t-1, t) temporal pairs, so the
-    total over chunks counts every consecutive pair once."""
+    total over chunks counts every consecutive pair once; with
+    cfg.gap_aware_temporal the acceleration triples centred at
+    [t0-1, t0+C-2] likewise tile the sequence once."""
     C, N = cfg.chunk, cfg.num_people
     W, H = cfg.image_size
     dev = cam_K.device
     f32 = torch.float32
 
-    poses_T_h, poses_smpl_h = chunk.poses_T_h, chunk.poses_smpl_h
+    # everything but the acceleration stencil reads the 1-frame-halo
+    # view; with halo 1 that is the arrays themselves, not sliced,
+    # because the backward of even a full slice launches a zero fill
+    # and a copy
+    def halo1(x):
+        return x[cfg.halo - 1:] if cfg.halo > 1 else x
+
+    poses_T_h = halo1(chunk.poses_T_h)
+    poses_smpl_h = halo1(chunk.poses_smpl_h)
     min_z_c, max_z_c = chunk.min_z_c, chunk.max_z_c
     depths_c, seg_c = chunk.depths_c, chunk.seg_c
     pose2d_c, ref_poses_c = chunk.pose2d_c, chunk.ref_poses_c
     valid_smpl_c = chunk.valid_smpl_c
-    frame_valid_h = chunk.frame_valid_h
+    frame_valid_h = halo1(chunk.frame_valid_h)
     frame_valid_c = frame_valid_h[1:]
     pair_valid = (frame_valid_h[:-1] * frame_valid_c
                   * (chunk.global_t > 0).to(f32))
+    # the robust profile drops the pairs with a stale endpoint (pair_w)
+    # and the 2D term of stale frames (obs_w), whose keypoints are the
+    # last detection repeated by ingestion; without it both are 1 and
+    # are not multiplied in
+    pair_w = obs_w = None
+    if cfg.gap_aware_temporal:
+        stale_h2 = chunk.stale_h                          # (C+2, N)
+        pair_w = (1.0 - torch.maximum(stale_h2[1:-1], stale_h2[2:])
+                  )[:, :, None, None]
+        obs_w = (1.0 - stale_h2[2:])[:, :, None, None]
+
+    def gate(x, w):
+        return x if w is None else x * w
 
     verts_abs_h, joints_abs_h = _smpl_bodies(
         model, poses_smpl_h, betas, scale, poses_T_h)
@@ -537,7 +570,7 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
     # 2D keypoint loss
     proj = project_points(joints_abs, cam_K, dist_coef=_dist_coef(cfg, dev))
     norm = torch.tensor([W, H], dtype=f32, device=dev)
-    w2d = conf_ok * fv[..., None, None]
+    w2d = gate(conf_ok * fv[..., None, None], obs_w)
     jw = _j17_weights(cfg, dev)
     if jw is not None:
         w2d = w2d * jw[None, None, :, None]
@@ -613,7 +646,7 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
         low_tm1 = torch.gather(
             verts_abs_h[:-1], -2,
             idx_low[1:, :, None, None].expand(C, N, 1, 3))
-        fs_gate = pv * in_contact
+        fs_gate = gate(pv, pair_w) * in_contact
         fs_num = torch.sum(_abs(fs_gate * (low - low_tm1)))
         fs_den = torch.clamp(torch.sum(fs_gate), min=1.0)
         reg_foot_sliding = fs_num / fs_den
@@ -629,12 +662,32 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
     dvf = chunk.dvf_c.to(f32)
     gv_diff = verts_abs - verts_abs_h[:-1]
     if aux.have_filters:
-        reg_filter_verts = torch.sum(torch.square(pv * (gv_diff - dvf)))
+        reg_filter_verts = torch.sum(torch.square(
+            gate(pv, pair_w) * (gv_diff - dvf)))
     else:
         reg_filter_verts = torch.zeros((), device=dev)
 
-    reg_vel = torch.sum(torch.square(pv * (poses_T_h[1:] - poses_T_h[:-1])))
+    reg_vel = torch.sum(torch.square(
+        gate(pv, pair_w) * (poses_T_h[1:] - poses_T_h[:-1])))
+
+    # gap acceleration: squared second differences of the root and the
+    # pose angles over triples (t-1, t, t+1) touching a stale frame, so
+    # an unobserved span interpolates between its observed ends
     reg_gap_accel = torch.zeros((), device=dev)
+    if cfg.gap_aware_temporal:
+        pT2, pS2 = chunk.poses_T_h, chunk.poses_smpl_h    # (C+2, ...)
+        fv2 = chunk.frame_valid_h
+        tri_stale = torch.maximum(torch.maximum(stale_h2[:-2],
+                                                stale_h2[1:-1]),
+                                  stale_h2[2:])            # (C, N)
+        center_t = chunk.global_t - 1
+        tri_valid = fv2[:-2] * fv2[1:-1] * fv2[2:] * (center_t >= 1).to(f32)
+        w_tri = tri_valid[:, None] * tri_stale
+        accel_T = pT2[2:] - 2.0 * pT2[1:-1] + pT2[:-2]
+        accel_P = pS2[2:] - 2.0 * pS2[1:-1] + pS2[:-2]
+        reg_gap_accel = (
+            torch.sum(torch.square(w_tri[:, :, None, None] * accel_T))
+            + torch.sum(torch.square(w_tri[:, :, None] * accel_P)))
 
     loss = (coefs["proj2d"] * loss_pose
             + coefs["depth"] * loss_depth
@@ -644,6 +697,8 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
             + coefs["reg_foot_sliding"] * reg_foot_sliding
             + coefs["reg_verts_filter"] * reg_filter_verts
             + coefs["reg_velocity"] * reg_vel)
+    if cfg.gap_aware_temporal:
+        loss = loss + coefs["reg_gap_accel"] * reg_gap_accel
     parts = torch.stack([loss_pose, loss_depth, loss_sil, reg_ref,
                          torch.zeros((), device=dev), reg_contact,
                          reg_foot_sliding, reg_vel, reg_filter_verts,

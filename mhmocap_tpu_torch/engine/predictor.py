@@ -2,13 +2,16 @@
 
 Port of `mhmocap_tpu/engine/predictor.py` on a single device: window
 sizing, `run` (init solve, `optvar_init.pkl`, the stage-1 fit,
-`optvar_stage1.pkl` with the JAX package's schema) and `fit`, the cycle
-loop. Checkpoints, visualizations and profiler traces are not ported
-yet and raise NotImplementedError.
+`optvar_stage1.pkl` with the JAX package's schema, the optional post-fit
+gap interpolation and visualization exports) and `fit`, the cycle loop
+with its optional checkpoints (`checkpoint_every`, `torch.save` in
+place of orbax) and a `torch.profiler` trace of cycle 2
+(`profile_dir`).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 import time
@@ -22,7 +25,10 @@ from ..data.ingestion import SequenceArrays
 from ..models.smpl import SMPLModel
 from ..ops.image import fillin_masked
 from ..ops.rasterizer import preorder_faces
+from ..viz.export import (save_visualization_init_data,
+                          save_visualization_stage1)
 from . import optimizer as E
+from .gapfill import interpolate_gap_trajectories
 
 
 def tune_time_layout(T: int, user_bucket: int = 0, batch_size: int = 10):
@@ -38,9 +44,43 @@ def tune_time_layout(T: int, user_bucket: int = 0, batch_size: int = 10):
     return chunk, chunk
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to mhmocap_tpu_torch "
-                              f"yet (see ROADMAP.md)")
+KEEP_CHECKPOINTS = 2
+
+
+def _checkpoints(ckpt_dir: str):
+    """The checkpoint files of `ckpt_dir`, oldest first."""
+    return sorted(glob.glob(os.path.join(ckpt_dir, "cycle_*.pt")))
+
+
+def save_checkpoint(ckpt_dir: str, cycle: int, params: E.StageParams,
+                    opt_state: E.RMSpropState):
+    """Write (params, RMSprop state with its step count) after `cycle`
+    to `ckpt_dir`/cycle_%06d.pt and keep the newest KEEP_CHECKPOINTS.
+    The file is written under a temporary name and renamed, so that a
+    kill mid-save leaves the previous checkpoint readable."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"cycle_{cycle:06d}.pt")
+    state = {"cycle": cycle, "count": int(opt_state.count)}
+    for name, tree in (("params", params), ("nu", opt_state.nu),
+                       ("trace", opt_state.trace)):
+        state[name] = [x.detach().cpu() for x in tree]
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for old in _checkpoints(ckpt_dir)[:-KEEP_CHECKPOINTS]:
+        os.remove(old)
+
+
+def load_checkpoint(ckpt_dir: str, device):
+    """(cycle, params, opt_state) of the newest checkpoint in
+    `ckpt_dir`, or None when there is none."""
+    found = _checkpoints(ckpt_dir)
+    if not found:
+        return None
+    state = torch.load(found[-1], map_location=device, weights_only=True)
+    params, nu, trace = (E.StageParams(*state[k])
+                         for k in ("params", "nu", "trace"))
+    return state["cycle"], params, E.RMSpropState(
+        nu=nu, trace=trace, count=state["count"])
 
 
 class Predictor:
@@ -50,14 +90,6 @@ class Predictor:
     def __init__(self, seq: SequenceArrays, model: SMPLModel,
                  output_path: str, parsed_args, device="cuda", **_):
         device = require_device(device)
-        if getattr(parsed_args, "save_visualizations", False):
-            _not_ported("save_visualizations")
-        if int(getattr(parsed_args, "checkpoint_every", 0) or 0) > 0:
-            _not_ported("checkpoint_every")
-        if getattr(parsed_args, "profile_dir", None):
-            _not_ported("profile_dir")
-        if getattr(parsed_args, "gap_interpolate", False):
-            _not_ported("gap_interpolate")
         os.makedirs(output_path, exist_ok=True)
         self.device = device
         self.seq = seq
@@ -65,6 +97,8 @@ class Predictor:
         self.output_path = output_path
         self.args = parsed_args
         self.num_iter = parsed_args.num_iter
+        self.save_visualizations = bool(
+            getattr(parsed_args, "save_visualizations", False))
 
         W, H = seq.image_size
         chunk, bucket = tune_time_layout(
@@ -101,7 +135,14 @@ class Predictor:
             "reg_contact": parsed_args.reg_contact_coef,
             "reg_foot_sliding": parsed_args.reg_foot_sliding_coef,
         }
+        # read by the loss only with gap_aware_temporal; the velocity
+        # coefficient unless the config sets its own
+        gap_coef = getattr(parsed_args, "reg_gap_accel_coef", None)
+        self.coefs["reg_gap_accel"] = (
+            parsed_args.reg_velocity_coef if gap_coef is None
+            else float(gap_coef))
         self.bench_window_seconds = None
+        self.export_seconds = {}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -218,6 +259,12 @@ class Predictor:
                   "wb") as f:
             pickle.dump(init_optvar, f)
         init_log = [{"loss_2d": v} for v in init_hist]
+        if self.save_visualizations:
+            tv = time.time()
+            save_visualization_init_data(
+                self.output_path, seq, self.model, init_optvar, init_hist,
+                joints_thr=cfg.joint_confidence_thr)
+            self.export_seconds["init"] = time.time() - tv
 
         t1 = time.time()
         log, scene_host = self.fit(params, optimize_scale, verbose=verbose)
@@ -233,9 +280,29 @@ class Predictor:
         stage1_optvar["window_clip_rates"] = self.window_clip_rates
         if seq.lagged_tn is not None:
             stage1_optvar["lagged_tn"] = np.asarray(seq.lagged_tn)
+        # post-fit gap interpolation of the unobserved spans; the frame
+        # count is recorded whenever the knob is on (0: nothing stale)
+        if getattr(self.args, "gap_interpolate", False):
+            n_gap = 0
+            if seq.lagged_tn is not None and seq.lagged_tn.any():
+                (stage1_optvar["poses_T"], stage1_optvar["poses_smpl"],
+                 n_gap) = interpolate_gap_trajectories(
+                    stage1_optvar["poses_T"], stage1_optvar["poses_smpl"],
+                    seq.lagged_tn)
+            stage1_optvar["gap_interp_frames"] = n_gap
+            if verbose and n_gap:
+                print(f"gap_interpolate: {n_gap} unobserved person-frames "
+                      f"interpolated", flush=True)
         with open(os.path.join(self.output_path, "optvar_stage1.pkl"),
                   "wb") as f:
             pickle.dump(stage1_optvar, f)
+
+        if self.save_visualizations:
+            tv = time.time()
+            save_visualization_stage1(self.output_path, seq, self.model,
+                                      stage1_optvar, init_optvar["pose2d"],
+                                      log)
+            self.export_seconds["stage1"] = time.time() - tv
 
         return {
             "init_log_loss": init_log,
@@ -250,7 +317,14 @@ class Predictor:
         """The stage-1 cycle loop. With `bench_cycles` in the args, the
         loop synchronizes at those cycle boundaries (a boundary equal to
         `num_iter` marks the end of the loop) and records the wall time
-        of each window between them in `bench_window_seconds`."""
+        of each window between them in `bench_window_seconds`.
+
+        With `checkpoint_every` K > 0 it saves (params, RMSprop state)
+        after every K-th cycle to `output_path`/ckpt and first resumes
+        from the newest checkpoint there, running only the cycles after
+        it; the aux state (scene, filtered targets) is not saved and
+        starts afresh, as in the JAX package. With `profile_dir` it
+        writes a torch.profiler Chrome trace of cycle 2 there."""
         seq, cfg, model = self.seq, self.cfg, self.model
         data = E.prepare_seq_data(seq, cfg, self.device)
         betas_ref = torch.as_tensor(
@@ -258,6 +332,18 @@ class Predictor:
                 np.float32), device=self.device)
         aux = E.init_aux(cfg, model.num_vertices, betas_ref)
         opt_state = E.rmsprop_init(params)
+
+        ckpt_every = int(getattr(self.args, "checkpoint_every", 0) or 0)
+        ckpt_dir = os.path.join(self.output_path, "ckpt")
+        start_cycle = 0
+        if ckpt_every > 0:
+            restored = load_checkpoint(ckpt_dir, self.device)
+            if restored is not None:
+                last, params, opt_state = restored
+                start_cycle = last + 1
+                print(f"resumed from checkpoint at cycle {last}", flush=True)
+        profile_dir = getattr(self.args, "profile_dir", None)
+        prof = None
 
         bench_set = set(getattr(self.args, "bench_cycles", None) or ())
         bench_marks = []
@@ -271,13 +357,25 @@ class Predictor:
 
         parts_log, losses = [], []
         t_start = time.time()
-        for cycle in range(self.num_iter):
+        for cycle in range(start_cycle, self.num_iter):
             mark(cycle)
+            if profile_dir and cycle == 2:
+                prof = self._start_profiler()
             params, opt_state, aux, loss, parts = E.stage1_cycle_fused(
                 params, opt_state, aux, cycle, model, data, self.coefs,
                 cfg, optimize_scale=optimize_scale)
+            if prof is not None:
+                self._sync()
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                path = os.path.join(profile_dir, "trace_cycle2.json")
+                prof.export_chrome_trace(path)
+                print("profiler trace written to", path, flush=True)
+                prof = None
             parts_log.append(parts)
             losses.append(loss)
+            if ckpt_every > 0 and (cycle + 1) % ckpt_every == 0:
+                save_checkpoint(ckpt_dir, cycle, params, opt_state)
             if verbose and (cycle % 25 == 0 or cycle == self.num_iter - 1):
                 print(f"cycle {cycle:4d} loss={float(loss):.4f} "
                       f"({(time.time() - t_start):.1f}s)", flush=True)
@@ -291,6 +389,15 @@ class Predictor:
         self._params = params
         self._aux = aux
         return log, self._final_scene(params, data, aux)
+
+    # ------------------------------------------------------------------
+    def _start_profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
 
     # ------------------------------------------------------------------
     def _final_scene(self, params, data, aux) -> Optional[Dict]:

@@ -90,8 +90,9 @@ def build_mupots_sequence(
 def main(argv=None):
     """Run one TS sequence. Returns a summary: the output directory,
     the ingestion seconds by phase, the Predictor's EngineConfig, the
-    init-solve seconds and the timed cycle windows (when the config sets
-    `bench_cycles`)."""
+    init-solve seconds, the timed cycle windows (when the config sets
+    `bench_cycles`), the stage-1 loss parts per cycle and the seconds
+    of each visualization export (when the config saves them)."""
     parsed = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(parsed)
     with ConfigContext(parsed):
@@ -114,7 +115,7 @@ def main(argv=None):
 
         predictor = Predictor(seq, model, output_path=output_path,
                               parsed_args=parsed, device=device)
-        predictor.run()
+        result = predictor.run()
 
         with open(os.path.join(output_path, "mupots_annot.pkl"),
                   "wb") as f:
@@ -129,7 +130,9 @@ def main(argv=None):
     return {"output_path": output_path, "ingest_seconds": timings,
             "engine_config": predictor.cfg,
             "init_seconds": predictor.init_seconds,
-            "cycle_seconds": predictor.bench_window_seconds}
+            "cycle_seconds": predictor.bench_window_seconds,
+            "stage1_log": result["stage1_log"],
+            "export_seconds": predictor.export_seconds}
 
 
 if __name__ == "__main__":

@@ -26,10 +26,14 @@ from .ops.cameras import intrinsics_from_fov, project_points
 T, N, SIDE, WINDOW = 201, 3, 256, 160
 # The raster calls of the main paths as (bodies per call, windows): a
 # cycle makes one call per window per chunk, and every person has a
-# window of its own in both. chip_smoke.py phase 4 (bench-ts1): chunk
+# window of its own in each. chip_smoke.py phase 4 (bench-ts1): chunk
 # 29, windows 160/128/112; phase 6 (the entry trees): chunk 30, windows
-# 160/112/80 (TS1) and 160/112 (TS2).
-KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)))
+# 160/112/80 (TS1) and 160/112 (TS2); phase 7 (the robust config's
+# 32-frame degraded tree): chunk 32, windows 160/112/80. The kernels
+# are timed at the first two (TIMED_SHAPES) and checked at all.
+KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)),
+                 (32, (160, 112, 80)))
+TIMED_SHAPES = {(b, w) for b, wins in KERNEL_SHAPES[:2] for w in wins}
 # body depth whose projection fills each window (bench placement)
 WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
 

@@ -276,8 +276,3 @@ def test_refreshes_match_from_same_params(prob):
             assert to[k] is None
         else:
             np.testing.assert_allclose(to[k], v, rtol=1e-6, err_msg=k)
-
-
-def test_gap_aware_temporal_not_ported():
-    with pytest.raises(NotImplementedError):
-        TE.EngineConfig(**CFG, gap_aware_temporal=True)

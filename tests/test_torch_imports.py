@@ -35,11 +35,13 @@ SCRIPT = textwrap.dedent("""
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
                                         mupots, romp)
     from mhmocap_tpu_torch.data import synthetic as synthetic_tree
-    from mhmocap_tpu_torch.engine import optimizer as E, predictor, scene
+    from mhmocap_tpu_torch.engine import (gapfill, optimizer as E,
+                                          predictor, scene)
     from mhmocap_tpu_torch.eval import metrics, mupots_eval
     from mhmocap_tpu_torch.models import loader, smpl, synthetic
     from mhmocap_tpu_torch.ops import (cameras, image, morphology, one_euro,
                                        raster_cuda, rasterizer)
+    from mhmocap_tpu_torch.viz import export
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
@@ -76,7 +78,8 @@ SCRIPT = textwrap.dedent("""
     assert torch.isfinite(loss) and torch.isfinite(parts).all()
 
     # the entry points on a port-written tree: JPEG/PNG/YAML without
-    # PIL, OpenCV or PyYAML
+    # PIL, OpenCV or PyYAML, with the robust profile and the
+    # visualizations (no matplotlib)
     import json, os
     with tempfile.TemporaryDirectory() as tmp:
         synthetic_tree.generate_sequence(
@@ -86,7 +89,10 @@ SCRIPT = textwrap.dedent("""
                                  sweep.sweep_config(
                                      os.path.join(tmp, "data"), 2,
                                      raster_window=32,
-                                     post_process_depth=True))
+                                     post_process_depth=True,
+                                     gap_aware_temporal=True,
+                                     gap_interpolate=True,
+                                     save_visualizations=True))
         predict_mupots.resolve_smpl_model = lambda path: model
         eval_mupots.resolve_smpl_model = lambda path: model
         out = os.path.join(tmp, "out")
@@ -95,8 +101,10 @@ SCRIPT = textwrap.dedent("""
         eval_mupots.main(["--configs_yml", cfg, "--input_path", out,
                           "--device", "cpu"])
         names = sorted(os.listdir(os.path.join(out, "TS1")))
-        assert names == ["mupots_annot.pkl", "optvar_init.pkl",
-                         "optvar_stage1.pkl"], names
+        assert names == ["fig_optim_curves_init.png",
+                         "fig_optim_curves_stage1.png", "mupots_annot.pkl",
+                         "optvar_init.pkl", "optvar_stage1.pkl", "vis_init",
+                         "vis_stage1", "visualization_data_stage1.pkl"], names
         with open(os.path.join(out, "FinalResults.json")) as f:
             final = json.load(f)["final_results"]
         assert all(v == v for vals in final.values() for v in vals), final
@@ -110,7 +118,8 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax_and_host_deps():
     """Import every port module and run SMPL, the raster, a tiny
     Predictor.run, a cycle with the scene and filter refreshes, and
-    predict_mupots + eval_mupots on a port-written tree with
+    predict_mupots (with gap_aware_temporal, gap_interpolate and
+    save_visualizations) + eval_mupots on a port-written tree with
     --device cpu, in a fresh interpreter where jax, yaml, PIL, cv2,
     matplotlib, optax, flax, orbax and mhmocap_tpu cannot be
     imported."""

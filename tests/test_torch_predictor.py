@@ -2,12 +2,14 @@
 mhmocap_tpu: time layout, window sizing, and a tiny end-to-end
 Predictor.run whose output pickles are held to the JAX package's."""
 
+import json
 import os
 import pickle
 import types
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_engine import seq_arrays
 from torch_parity import torch_model_of
@@ -146,11 +148,71 @@ def test_predictor_stage1_matches(runs):
             assert close.mean() >= 0.99, (k, close.mean())
 
 
-@pytest.mark.parametrize("option", [
-    {"checkpoint_every": 5}, {"save_visualizations": True},
-    {"profile_dir": "trace"}, {"gap_interpolate": True}])
-def test_unported_options_raise(tmp_path, option):
+def _tiny_predictor(out, **args):
     jm = make_synthetic_smpl(num_vertices=384, seed=1)
-    with pytest.raises(NotImplementedError):
-        TPr.Predictor(TSeq(**seq_arrays(jm)), torch_model_of(jm),
-                      str(tmp_path), make_args(**option), device="cpu")
+    return TPr.Predictor(TSeq(**seq_arrays(jm)), torch_model_of(jm),
+                         str(out), make_args(**args), device="cpu")
+
+
+def _stage1(out):
+    with open(os.path.join(str(out), "optvar_stage1.pkl"), "rb") as fh:
+        return pickle.load(fh)
+
+
+def test_checkpoint_resume_equals_unbroken_run(tmp_path, capsys):
+    """checkpoint_every=1: a 2-cycle run, then a 4-cycle Predictor on
+    the same output_path resumes after cycle 1 and runs cycles 2 and 3
+    only; its stage-1 pickle and losses equal a 4-cycle unbroken run's
+    bit for bit (the RMSprop state, step count included, is restored),
+    and the 2 newest checkpoints are kept."""
+    whole = _tiny_predictor(tmp_path / "whole", num_iter=4)
+    whole.run(verbose=False)
+    _tiny_predictor(tmp_path / "split", num_iter=2,
+                    checkpoint_every=1).run(verbose=False)
+    capsys.readouterr()
+    resumed = _tiny_predictor(tmp_path / "split", num_iter=4,
+                              checkpoint_every=1)
+    out = resumed.run(verbose=False)
+    assert "resumed from checkpoint at cycle 1" in capsys.readouterr().out
+    assert len(out["stage1_log"]) == 2
+    np.testing.assert_array_equal(resumed.stage1_losses,
+                                  whole.stage1_losses[2:])
+    ref, got = _stage1(tmp_path / "whole"), _stage1(tmp_path / "split")
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            assert got[k] == v, k
+    assert sorted(os.listdir(tmp_path / "split" / "ckpt")) == [
+        "cycle_000002.pt", "cycle_000003.pt"]
+
+
+def test_checkpoint_ignores_a_partial_write(tmp_path):
+    """A save cut short leaves only its temporary file, which the
+    resume does not read: the newest complete checkpoint is loaded."""
+    from mhmocap_tpu_torch.engine import optimizer as TE
+    params = TE.StageParams(*[torch.full((2, 3), float(i))
+                              for i in range(6)])
+    state = TE.rmsprop_init(params)._replace(count=7)
+    ckpt = str(tmp_path / "ckpt")
+    TPr.save_checkpoint(ckpt, 4, params, state)
+    with open(os.path.join(ckpt, "cycle_000005.pt.tmp"), "wb") as f:
+        f.write(b"partial")
+    cycle, got, got_state = TPr.load_checkpoint(ckpt, "cpu")
+    assert cycle == 4 and got_state.count == 7
+    for a, b in zip(got, params):
+        assert torch.equal(a, b)
+    assert TPr.load_checkpoint(str(tmp_path / "none"), "cpu") is None
+
+
+def test_profile_dir_writes_a_trace(tmp_path, capsys):
+    """profile_dir: a torch.profiler Chrome trace of cycle 2 is written
+    there and its path printed."""
+    _tiny_predictor(tmp_path / "out", num_iter=3,
+                    profile_dir=str(tmp_path / "trace")).run(verbose=False)
+    path = os.path.join(str(tmp_path / "trace"), "trace_cycle2.json")
+    assert f"profiler trace written to {path}" in capsys.readouterr().out
+    with open(path) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"]
