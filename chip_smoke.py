@@ -9,12 +9,13 @@ Phases (any failure raises, so the process exits non-zero):
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
      ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
-     at every raster call shape of phases 4, 6 and 7
+     at every raster call shape of phases 4, 6, 7 and 9
      (workload.KERNEL_SHAPES: posed full-size bodies, 29 per call at
-     windows 160/128/112, 30 at 160/112/80, and phase 7's; errors
-     printed beside their bounds), the forward's log1pf shortcut
-     checked, two forward and two backward launches bit-identical, then,
-     at the shapes of phases 4 and 6, timed against the plain version on
+     windows 160/128/112, 30 at 160/112/80, phase 7's, and 12 at the
+     full-frame 256; errors printed beside their bounds), the forward's
+     log1pf shortcut checked, two forward and two backward launches
+     bit-identical, then, at the shapes of phases 4, 6 and 9
+     (workload.TIMED_SHAPES), timed against the plain version on
      the same inputs; prints the active (cell, chunk) pairs (the JAX
      package's cell-major schedule, held equal to the backward's
      chunk-major cells) and the chunks per active cell, the pixel-face
@@ -56,7 +57,19 @@ Phases (any failure raises, so the process exits non-zero):
   8. checkpoint and trace: a tiny sequence runs 4 cycles unbroken (with
      a profiler trace of cycle 2) and again as 2 + 2 cycles with
      checkpoint_every=1; the resumed run's stage-1 pickle and losses
-     must equal the unbroken run's bit for bit, and the trace must exist.
+     must equal the unbroken run's bit for bit, and the trace must exist;
+  9. visualization and FHSOG, on phase 7's output (256x256, 32 frames, 3
+     people, the full body): `visualization.main --device cuda` in scene
+     mode with both captures (scene.ply, human_*.ply, camera view,
+     colour and uint16 depth captures; depths inside the fit's z range)
+     and in skeleton mode; then `build_fhsog_from_smpl` (128 bins) on the
+     stage-1 visualization data, whose full-frame rasters must launch the
+     forward kernel (at a shape phase 3 checked), checked against the
+     same call on CPU tensors (the plain raster) over the first 2
+     frames, and `carve_fog_with_meshes` at full size with frame 0's
+     bodies, checked against the CPU on a strided subset of voxels;
+     prints the seconds of each step and the raster's share of the
+     build.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -165,9 +178,9 @@ def _raster_calls(cfg):
     return {(cfg.chunk * len(ns), w) for w, ns in cfg.window_groups}
 
 
-def _check_raster_calls(cfg, where):
+def _check_raster_calls(cfg, where, calls=None):
     from mhmocap_tpu_torch.workload import KERNEL_SHAPES
-    calls = _raster_calls(cfg)
+    calls = _raster_calls(cfg) if calls is None else calls
     checked = {(b, w) for b, wins in KERNEL_SHAPES for w in wins}
     print(f"[{where}] raster calls (bodies, window): {sorted(calls)}",
           flush=True)
@@ -770,6 +783,225 @@ def phase_checkpoint(tmp):
         raise AssertionError("profile_dir wrote no trace")
 
 
+class RasterClock:
+    """Records the (bodies, window) shape and CUDA events around each
+    `rasterize_bodies` call while active, with no host synchronization."""
+
+    def __init__(self):
+        from mhmocap_tpu_torch.ops import rasterizer
+        self.mod, self.fn, self.calls, self.events = (
+            rasterizer, rasterizer.rasterize_bodies, set(), [])
+
+    def __enter__(self):
+        def timed(verts, faces, cam_K, settings):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.fn(verts, faces, cam_K, settings)
+            b.record()
+            self.events.append((a, b))
+            self.calls.add((verts.shape[0], settings.window))
+            return out
+        self.mod.rasterize_bodies = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rasterize_bodies = self.fn
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+# The CPU's plain raster of a full-size body at window 256 takes 24-30 s
+# on the card's host, so the check against the CPU covers the first 2
+# frames, rastered one frame a call on the CPU (the result does not
+# depend on the frames a call: tests/test_torch_fhsog.py).
+FHSOG_BINS, FHSOG_CPU_FRAMES = 128, 2
+FHSOG_RTOL, FHSOG_ATOL = 1e-4, 1e-6
+CARVE_STRIDE, CARVE_MAX_DIFF = 997, 1e-3
+
+
+def _vis_config(tmp, mode):
+    """The robust config with the viewer's ARGS: `mode`, both captures."""
+    from mhmocap_tpu_torch.config import dump_yaml, load_yaml
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ROBUST_CONFIG)) as f:
+        cfg = load_yaml(f.read())
+    cfg["ARGS"] = dict(cfg.get("ARGS") or {}, viz_mode=mode,
+                       capture_rendered_color=True,
+                       capture_rendered_depth=True)
+    path = os.path.join(tmp, f"vis_{mode}.yml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg))
+    return path
+
+
+def _close(got, ref, what, fails):
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    excess = float(((got - ref).abs()
+                    - (FHSOG_ATOL + FHSOG_RTOL * ref.abs())).max())
+    print(f"[9 fhsog] card vs CPU {what}: max |err| "
+          f"{float((got - ref).abs().max()):.3g}, excess over atol "
+          f"{FHSOG_ATOL:g} + rtol {FHSOG_RTOL:g} |CPU| {excess:.3g}",
+          flush=True)
+    if excess > 0:
+        fails.append(what)
+
+
+def phase_visualization_fhsog(tmp, robust_dir):
+    """Phase 9: the visualization entry point and the FHSOG build on
+    phase 7's stage-1 output."""
+    import pickle
+    import shutil
+    from mhmocap_tpu_torch import visualization
+    from mhmocap_tpu_torch.engine import fhsog
+    from mhmocap_tpu_torch.io import read_png
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    with open(os.path.join(robust_dir, "optvar_stage1.pkl"), "rb") as f:
+        optvar = pickle.load(f)
+    with open(os.path.join(robust_dir, "visualization_data_stage1.pkl"),
+              "rb") as f:
+        vis = pickle.load(f)
+    T, N = vis["verts"].shape[:2]
+    H, W = vis["depths"].shape[1:]
+    near_z = float(np.min(optvar["min_z"]))
+    far_z = float(np.max(optvar["max_z"]))
+
+    # (a) scene view, (b) skeleton view
+    secs, viz_dirs = {}, {}
+    for mode in ("scene", "skeleton"):
+        t0 = time.time()
+        out_dir = visualization.main(
+            ["--configs_yml", _vis_config(tmp, mode), "--input_path",
+             robust_dir, "--device", "cuda"])
+        secs[mode] = time.time() - t0
+        viz_dirs[mode] = out_dir + "_" + mode
+        shutil.move(out_dir, viz_dirs[mode])
+    names = set(os.listdir(viz_dirs["scene"]))
+    frames = min(T, 10)
+    want = ({"scene.ply", "camera_view_0000.png"}
+            | {f"human_{t:04d}_{n}.ply" for t in range(frames)
+               for n in range(N)}
+            | {f"{k}_{t:06d}.png" for k in ("img", "depth")
+               for t in range(frames)})
+    depth = np.stack([read_png(os.path.join(viz_dirs["scene"],
+                                            f"depth_{t:06d}.png"))
+                      for t in range(frames)]).astype(np.float64) / 1e3
+    hit = depth[depth > 0]
+    with open(os.path.join(viz_dirs["scene"], "scene.ply")) as f:
+        n_scene = int(f.read(200).split("element vertex ")[1].split()[0])
+    print(f"[9 vis] scene view: {len(names)} files ({n_scene} scene points,"
+          f" {N * frames} body meshes) in {secs['scene']:.2f}s; depth "
+          f"captures {depth.shape}, {hit.size} nonzero in "
+          f"[{hit.min():.3f}, {hit.max():.3f}] m, fit z range "
+          f"[{near_z:.3f}, {far_z:.3f}] m", flush=True)
+    if not want <= names:
+        raise AssertionError(f"scene view files missing: "
+                             f"{sorted(want - names)}")
+    if not (hit.size and np.isfinite(hit).all() and hit.min()
+            >= near_z - 1e-3 and hit.max() <= far_z):
+        raise AssertionError("depth captures outside the fit's z range")
+    sk_names = set(os.listdir(viz_dirs["skeleton"]))
+    sk_want = ({f"skeleton_{t:04d}.ply" for t in range(frames)}
+               | {f"img_{t:06d}.png" for t in range(frames)})
+    print(f"[9 vis] skeleton view: {len(sk_names)} files in "
+          f"{secs['skeleton']:.2f}s", flush=True)
+    if not sk_want <= sk_names:
+        raise AssertionError(f"skeleton view files missing: "
+                             f"{sorted(sk_want - sk_names)}")
+
+    # (c) FHSOG on the stage-1 data, then the carve
+    model = make_synthetic_smpl()
+    dev = torch.device("cuda")
+
+    def inputs(device, frames=T):
+        return ([torch.as_tensor(np.asarray(vis[k][:frames], np.float32),
+                                 device=device)
+                 for k in ("depths", "images", "backmasks", "verts")]
+                + [model.faces.to(device),
+                   torch.as_tensor(np.asarray(vis["cam"]["K"], np.float32),
+                                   device=device)])
+
+    def build(args):
+        return fhsog.build_fhsog_from_smpl(*args, near_z, far_z,
+                                           num_depth_bins=FHSOG_BINS)
+
+    args = inputs(dev)
+    for k in RasterPlanes.launches:
+        RasterPlanes.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with RasterClock() as clock:
+        out = build(args)
+        torch.cuda.synchronize()
+    build_s = time.time() - t0
+    launches = dict(RasterPlanes.launches)
+    raster_s = clock.seconds()
+    print(f"[9 fhsog] T={T} N={N} {H}x{W}, {FHSOG_BINS} bins, z "
+          f"[{near_z:.3f}, {far_z:.3f}]: build {build_s:.3f}s, raster "
+          f"{raster_s:.3f}s ({raster_s / build_s:.3f} of it) in "
+          f"{len(clock.events)} calls; launches {launches}; fog mass "
+          f"{float(out[0].sum()):.4g}, body pixels "
+          f"{int(out[3].sum())}", flush=True)
+    _check_raster_calls(None, "9 fhsog", clock.calls)
+    if launches["fwd"] != len(clock.events) or launches["bwd"]:
+        raise AssertionError(f"FHSOG raster launches {launches} for "
+                             f"{len(clock.events)} calls")
+    if not (out[3].any() and float(out[0].sum()) > 0
+            and all(bool(torch.isfinite(x).all()) for x in out)):
+        raise AssertionError("FHSOG output is empty or not finite")
+
+    fails = []
+    k = FHSOG_CPU_FRAMES
+    per_call = fhsog.FRAMES_PER_CALL
+    t0 = time.time()
+    try:
+        fhsog.FRAMES_PER_CALL = 1
+        ref = build(inputs("cpu", k))
+    finally:
+        fhsog.FRAMES_PER_CALL = per_call
+    cpu_s = time.time() - t0
+    got = build(inputs(dev, k))
+    same = torch.equal(got[3].cpu(), ref[3])
+    print(f"[9 fhsog] first {k} frames, card vs CPU (plain raster, one "
+          f"frame a call, {cpu_s:.1f}s): smpl_masks equal {same}",
+          flush=True)
+    if not same:
+        fails.append("smpl_masks")
+    for i, what in ((0, "fhsog_alpha"), (4, "gdfs"), (1, "texture")):
+        _close(got[i], ref[i], what, fails)
+
+    fog = out[0] > 0
+    verts0 = args[3][0]
+    t0 = time.time()
+    carved = fhsog.carve_fog_with_meshes(fog, verts0, args[4], near_z,
+                                         far_z, args[5])
+    torch.cuda.synchronize()
+    carve_s = time.time() - t0
+    pts = fhsog.fog_voxel_points(fog.shape, near_z, far_z,
+                                 args[5].cpu())
+    idx = torch.arange(0, pts.shape[0], CARVE_STRIDE)
+    solid = fog.permute(1, 2, 0).reshape(-1)[idx.to(dev)].cpu()
+    inside = torch.zeros(idx.shape[0], dtype=torch.bool)
+    for b in range(verts0.shape[0]):
+        inside |= fhsog.points_inside_mesh(verts0[b].cpu(), args[4].cpu(),
+                                           pts[idx])
+    got_c = carved.permute(1, 2, 0).reshape(-1)[idx.to(dev)].cpu()
+    diff = float((got_c != (solid & inside)).float().mean())
+    print(f"[9 fhsog] carve {tuple(fog.shape)} voxels, {int(fog.sum())} "
+          f"solid, {int(carved.sum())} carved by frame 0's {N} bodies in "
+          f"{carve_s:.3f}s; card vs CPU on every {CARVE_STRIDE}th voxel "
+          f"({idx.numel()}, {int((solid & inside).sum())} carved): "
+          f"differ {diff:.3g} (bound {CARVE_MAX_DIFF:g})", flush=True)
+    if diff > CARVE_MAX_DIFF:
+        fails.append(f"carve differs on {diff}")
+    if fails:
+        raise AssertionError("FHSOG card vs CPU: " + "; ".join(fails))
+    return launches
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
@@ -781,8 +1013,10 @@ def main():
         entry_launches = phase_entry_points(os.path.join(tmp, "entry"))
         robust_launches = phase_shipped_config(os.path.join(tmp, "robust"))
         phase_checkpoint(os.path.join(tmp, "ckpt"))
+        fhsog_launches = phase_visualization_fhsog(
+            tmp, os.path.join(tmp, "robust", "out", f"TS{ROBUST_TS}"))
     # the launches of every main-path run, each counted from 0
-    launches = {k: main_launches[k] + robust_launches[k]
+    launches = {k: main_launches[k] + robust_launches[k] + fhsog_launches[k]
                 + sum(v[k] for v in entry_launches.values())
                 for k in main_launches}
     # times and bounds at B=29, window 160; no single PyTorch call

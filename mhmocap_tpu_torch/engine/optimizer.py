@@ -826,6 +826,15 @@ def fused_aux_refresh(params: StageParams, aux: StageAux, cycle_idx: int,
                         have_filters=aux.have_filters or do_filt)
 
 
+def stage1_cycle(params: StageParams, opt_state: RMSpropState,
+                 model: SMPLModel, data: SeqData, aux: StageAux, coefs,
+                 cfg: EngineConfig, optimize_scale: bool = True):
+    """One cycle without the aux refreshes: the full-batch gradient and
+    one RMSprop update. Returns (params, opt_state, loss, parts)."""
+    return grad_step(params, opt_state, model, data, aux, coefs, cfg,
+                     optimize_scale)
+
+
 def stage1_cycle_fused(params: StageParams, opt_state: RMSpropState,
                        aux: StageAux, cycle_idx: int, model: SMPLModel,
                        data: SeqData, coefs, cfg: EngineConfig,
@@ -837,6 +846,23 @@ def stage1_cycle_fused(params: StageParams, opt_state: RMSpropState,
     params, opt_state, loss, parts = grad_step(
         params, opt_state, model, data, aux, coefs, cfg, optimize_scale)
     return params, opt_state, aux, loss, parts
+
+
+def stage1_cycles_fused(params: StageParams, opt_state: RMSpropState,
+                        aux: StageAux, cycle_idx0: int, model: SMPLModel,
+                        data: SeqData, coefs, cfg: EngineConfig,
+                        optimize_scale: bool = True, n_cycles: int = 1):
+    """`n_cycles` consecutive `stage1_cycle_fused` calls with cycle
+    indices cycle_idx0 + [0, n_cycles). Returns (params, opt_state, aux,
+    losses (n_cycles,), parts (n_cycles, len(LOG_KEYS)))."""
+    losses, parts = [], []
+    for k in range(n_cycles):
+        params, opt_state, aux, loss, p = stage1_cycle_fused(
+            params, opt_state, aux, cycle_idx0 + k, model, data, coefs, cfg,
+            optimize_scale)
+        losses.append(loss)
+        parts.append(p)
+    return params, opt_state, aux, torch.stack(losses), torch.stack(parts)
 
 
 @torch.no_grad()

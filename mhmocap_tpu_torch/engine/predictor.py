@@ -6,7 +6,8 @@ sizing, `run` (init solve, `optvar_init.pkl`, the stage-1 fit,
 gap interpolation and visualization exports) and `fit`, the cycle loop
 with its optional checkpoints (`checkpoint_every`, `torch.save` in
 place of orbax) and a `torch.profiler` trace of cycle 2
-(`profile_dir`).
+(`profile_dir`); and `build_studio_sequence`, the studio-camera
+ingestion.
 """
 
 from __future__ import annotations
@@ -426,3 +427,44 @@ class Predictor:
             "scene_img": np.stack(filled, axis=-1).astype(np.uint8),
             "scene_mask": mask_f,
         }
+
+
+def build_studio_sequence(data_path, ts_id, cam_id, smpl_joints_fn,
+                          resize_factor=1.0, start_frame=0,
+                          end_frame=-1, step_frame=1,
+                          depth_path="DPT_midas21_monodepth",
+                          erode_segmentation_iters=1,
+                          erode_backmask_iters=2,
+                          renormalize_depth=True,
+                          post_process_depth=True,
+                          device="cuda"):
+    """Multi-camera studio sequence ingestion with the reference's
+    hard-coded studio intrinsics (predict.py:360-397), on `device` (the
+    GPU unless the caller passes device="cpu")."""
+    from ..data.ingestion import load_sequence
+
+    device = require_device(device)
+    if cam_id is not None:
+        data_path = os.path.join(data_path, f"seq{ts_id}", f"cam{cam_id}")
+    else:
+        data_path = os.path.join(data_path, f"seq{ts_id}")
+    frame_ids = list(range(start_frame, end_frame, step_frame))
+
+    W = 1028
+    cam_K = np.array([
+        [0.582952201 * W, 0, 0.501329839 * W],
+        [0, 0.582485139 * W, 0.349481702 * W],
+        [0, 0, 1]], np.float32)
+
+    return load_sequence(
+        data_path, smpl_joints_fn,
+        cam_K=cam_K,
+        frame_ids=frame_ids,
+        depth_path=depth_path,
+        resize_factor=resize_factor,
+        erode_segmentation_iters=erode_segmentation_iters,
+        erode_backmask_iters=erode_backmask_iters,
+        renormalize_depth=renormalize_depth,
+        post_process_depth=post_process_depth,
+        device=device,
+    )

@@ -1,13 +1,13 @@
 """3D pose evaluation metrics (host-side numpy).
 
-Port of what the MuPoTs evaluation calls of `mhmocap_tpu/eval/metrics.py`
-(itself the counterpart of the reference `mhmocap/evaluate.py`): the
-joint-layout remapping tables (cmu->mupots15, alphapose->mupots15,
-evaluate.py:9-63), per-frame Hungarian GT<->prediction matching in the
-projected 2D plane, absolute / root-relative joint distances, root
-position error, temporal jitter, masked MPJPE and PCK aggregation
-(evaluate.py:180-435). The orthographic-matching variants, which
-nothing calls, are left out.
+Port of `mhmocap_tpu/eval/metrics.py` (itself the counterpart of the
+reference `mhmocap/evaluate.py`): the joint-layout remapping tables
+(cmu->mupots15, alphapose->mupots15, evaluate.py:9-63), per-frame
+Hungarian GT<->prediction matching in the projected 2D plane (by
+perspective or by ROMP's orthographic projection), absolute /
+root-relative joint distances, root position error, temporal jitter,
+scale-invariant distances, masked MPJPE and PCK aggregation
+(evaluate.py:133-435).
 """
 
 from __future__ import annotations
@@ -27,6 +27,13 @@ def project_points(pts3d, K, dist_coef=None) -> np.ndarray:
         torch.from_numpy(np.asarray(pts3d, np.float32)),
         torch.from_numpy(np.asarray(K, np.float32)),
         dist_coef=dist_coef).numpy()
+
+
+def weak_perspective_projection(p3d, cam, image_size) -> np.ndarray:
+    """The port's orthographic projection of numpy arrays, on the CPU."""
+    return cameras.weak_perspective_projection(
+        torch.from_numpy(np.asarray(p3d, np.float32)),
+        torch.from_numpy(np.asarray(cam, np.float32)), image_size).numpy()
 
 
 # Mapping tables: out_joint -> ([weights], [input joints]).
@@ -164,6 +171,85 @@ def pose_error_3dproj(
         "valid_root": valid_root,
         "abs_jitter": jitter,
     }
+
+
+def _ortho_pred2d(joints_mupots17, cam_smpl, image_size):
+    T, N = joints_mupots17.shape[:2]
+    pred2d = weak_perspective_projection(
+        joints_mupots17.reshape(T * N, -1, 3), cam_smpl.reshape(T * N, 3),
+        image_size).reshape(T, N, -1, 2)
+    return np.concatenate([pred2d, np.ones_like(pred2d[..., :1])], -1)
+
+
+def _ref2d(ref_poses3d, visibility, cam_K):
+    T, K = ref_poses3d.shape[:2]
+    ref2d = project_points(ref_poses3d.reshape(-1, 3)[None],
+                           cam_K)[0].reshape(T, K, -1, 2)
+    return np.concatenate([ref2d, visibility], axis=-1)
+
+
+def pose_error_ortho(joints_mupots17, ref_poses3d, visibility, cam_smpl,
+                     cam_K, image_size):
+    """Root-relative errors with orthographic-projected prediction 2D
+    matching (reference compute_smpl_pred_error_ortho,
+    evaluate.py:133-177)."""
+    T = joints_mupots17.shape[0]
+    K = ref_poses3d.shape[1]
+    pred2d = _ortho_pred2d(joints_mupots17, cam_smpl, image_size)
+    ref2d = _ref2d(ref_poses3d, visibility, cam_K)
+    rel = np.zeros((T, K, 14), np.float32)
+    valid = np.zeros((T, K, 14), np.float32)
+    for t in range(T):
+        ri, pi = match_pose_sets(ref2d[t], pred2d[t])
+        for k, (r, p) in enumerate(zip(ri, pi)):
+            gt, pred = ref_poses3d[t, r], joints_mupots17[t, p]
+            rel[t, k] = _dists(gt[:14] - gt[14:15], pred[:14] - pred[14:15])
+            valid[t, k] = (visibility[t, r][:14, 0] > 0.5)
+    return rel, valid
+
+
+def match_predictions_to_gt(ref_poses3d, visibility, joints_mupots17,
+                            cam_smpl, cam_K, image_size):
+    """Per-frame (ref_idx, pred_idx) match list via orthographic
+    projection (reference match_pred_to_pref, evaluate.py:299-321)."""
+    pred2d = _ortho_pred2d(joints_mupots17, cam_smpl, image_size)
+    ref2d = _ref2d(ref_poses3d, visibility, cam_K)
+    return [match_pose_sets(ref2d[t], pred2d[t])
+            for t in range(joints_mupots17.shape[0])]
+
+
+def pose_error_3dproj_matched(optvar, ref_poses3d, visibility,
+                              joints_mupots17, match_list):
+    """Errors with a precomputed match list; also returns the global
+    least-squares scale and scale-invariant distances (reference
+    compute_smpl_pred_error_3dproj_matched, evaluate.py:324-398)."""
+    poses_T = optvar["poses_T"]
+    scale = optvar["scale_factor"]
+    T = poses_T.shape[0]
+    if scale.shape[0] == 1:
+        scale = np.tile(scale, (T, 1, 1, 1))
+    K = ref_poses3d.shape[1]
+
+    m_ref = np.zeros((T, K, 14, 3), np.float32)
+    m_pred = np.zeros((T, K, 14, 3), np.float32)
+    abs_dist = np.zeros((T, K, 14), np.float32)
+    rel_dist = np.zeros((T, K, 14), np.float32)
+    valid = np.zeros((T, K, 14), np.float32)
+    for t in range(T):
+        pred3d = scale[t] * joints_mupots17[t] + poses_T[t]
+        ri, pi = match_list[t]
+        for k, (r, p) in enumerate(zip(ri, pi)):
+            gt, pred = ref_poses3d[t, r], pred3d[p]
+            m_ref[t, k] = gt[:14]
+            m_pred[t, k] = pred[:14]
+            abs_dist[t, k] = _dists(gt[:14], pred[:14])
+            rel_dist[t, k] = _dists(gt[:14] - gt[14:15],
+                                    pred[:14] - pred[14:15])
+            valid[t, k] = (visibility[t, r][:14, 0] > 0.5)
+
+    s = np.mean((m_ref * m_pred) / np.clip(m_pred * m_pred, 1e-3, None))
+    si_dist = _dists(m_ref, s * m_pred)
+    return abs_dist, rel_dist, si_dist, valid, s
 
 
 def masked_average_error(dist, vis):

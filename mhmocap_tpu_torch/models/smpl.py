@@ -3,8 +3,9 @@
 Port of `mhmocap_tpu/models/smpl.py`: the same `SMPLModel` fields,
 `rodrigues`, `blend_shapes`, `joints_from_vertices`, the level-parallel
 `rigid_transform` over the kinematic tree depth, `lbs` (with the
-reference's hand-joint identity quirk) and `smpl_forward` with every
-auxiliary regressor output. The pickle loader is numpy only.
+reference's hand-joint identity quirk), `smpl_forward` with every
+auxiliary regressor output, the `create` factory, barycentric
+landmarks and `rot_mat_to_euler`. The pickle loader is numpy only.
 """
 
 from __future__ import annotations
@@ -334,3 +335,26 @@ def joints_function(model: SMPLModel, key: str):
                                 device=model.device))
         return out[key].cpu().numpy()
     return fn
+
+
+def create(model_path: str, model_type: str = "smpl",
+           **kwargs) -> SMPLModel:
+    """Factory mirroring the reference `create` (smpl.py:42-65)."""
+    if model_type.lower() != "smpl":
+        raise ValueError(f"Unknown model type {model_type}")
+    return load_smpl_model(model_path, **kwargs)
+
+
+def vertices_to_landmarks(vertices: torch.Tensor, faces: torch.Tensor,
+                          lmk_face_idx: torch.Tensor,
+                          lmk_bary_coords: torch.Tensor) -> torch.Tensor:
+    """Barycentric landmarks: vertices (B, V, 3), faces (F, 3),
+    lmk_face_idx (L,), lmk_bary_coords (L, 3) -> (B, L, 3)."""
+    tri = vertices[:, faces[lmk_face_idx]]        # (B, L, 3, 3)
+    return torch.sum(tri * lmk_bary_coords[None, :, :, None], dim=2)
+
+
+def rot_mat_to_euler(rot_mats: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> their y-axis Euler angle."""
+    sy = torch.sqrt(rot_mats[..., 0, 0] ** 2 + rot_mats[..., 1, 0] ** 2)
+    return torch.atan2(-rot_mats[..., 2, 0], sy)

@@ -2,9 +2,12 @@
 
 Port of `mhmocap_tpu/ops/cameras.py`: perspective projection with the
 reference's OpenCV-style distortion, UVD unprojection, ROMP's
-weak-perspective projection, intrinsics from a field of view, the
-fov <-> focal conversions, and softplus. Shape-polymorphic like the JAX version:
-(..., P, 3) points against a (3, 3) or broadcastable (..., 3, 3) K.
+weak-perspective projection, intrinsics from a field of view or from
+3D <-> 2D pairs (numpy), the NDC calibration matrix (numpy), the
+fov <-> focal conversions, the softplus and bounded-exp
+reparameterizations, disparity from depth and an [R|t] transform.
+Shape-polymorphic like the JAX version: (..., P, 3) points against a
+(3, 3) or broadcastable (..., 3, 3) K.
 """
 
 from __future__ import annotations
@@ -84,3 +87,98 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x), as jnp.logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                           device=x.device))
+
+
+def recover_intrinsics(pts3d: np.ndarray, pts2d: np.ndarray) -> np.ndarray:
+    """Least-squares (fx, cx, fy, cy) from 3D <-> 2D pairs (numpy)."""
+    xn = pts3d[:, 0] / pts3d[:, 2]
+    yn = pts3d[:, 1] / pts3d[:, 2]
+
+    def solve(p, q):
+        A = np.stack([p, np.ones_like(p)], axis=1)
+        coef, *_ = np.linalg.lstsq(A, q, rcond=None)
+        return coef[0], coef[1]
+
+    fx, cx = solve(xn, pts2d[:, 0])
+    fy, cy = solve(yn, pts2d[:, 1])
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+
+
+def recover_intrinsics_simplified(pts3d: np.ndarray, pts2d: np.ndarray,
+                                  image_size) -> np.ndarray:
+    """One focal per axis with the principal point at the image centre
+    (numpy)."""
+    cx, cy = image_size[0] / 2.0, image_size[1] / 2.0
+    p3 = pts3d[:, :2] / pts3d[:, 2:3]
+    p2 = pts2d - np.array([[cx, cy]], np.float32)
+
+    def solve(a, b):
+        return float((a * b).sum() / np.clip((a * a).sum(), 1e-12, None))
+
+    fx = solve(p3[:, 0], p2[:, 0])
+    fy = solve(p3[:, 1], p2[:, 1])
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+
+
+def ndc_calibration_matrix(znear: float, zfar: float, K: np.ndarray,
+                           image_size: Tuple[int, int]) -> np.ndarray:
+    """4x4 NDC projection matrix of a PyTorch3D-style calibration: the
+    shorter image side maps to [-1, 1], the principal-point offsets go
+    in the third column, depth maps through zfar / (zfar - znear) and
+    -zfar znear / (zfar - znear) (numpy)."""
+    w, h = image_size
+    if w > h:
+        s1 = 2 * K[1, 1] / h
+        u = w / h
+        w1 = u * (w - 2 * K[0, 2]) / w
+        h1 = (h - 2 * K[1, 2]) / h
+    elif h > w:
+        s1 = 2 * K[0, 0] / w
+        u = h / w
+        w1 = (w - 2 * K[0, 2]) / w
+        h1 = u * (h - 2 * K[1, 2]) / h
+    else:
+        s1 = 2 * (K[0, 0] + K[1, 1]) / (w + h)
+        w1 = (w - 2 * K[0, 2]) / w
+        h1 = (h - 2 * K[1, 2]) / h
+    f1 = zfar / (zfar - znear)
+    f2 = -(zfar * znear) / (zfar - znear)
+    return np.array([[s1, 0, w1, 0],
+                     [0, s1, h1, 0],
+                     [0, 0, f1, f2],
+                     [0, 0, 1, 0]], np.float32)
+
+
+def inverse_softplus(s: torch.Tensor) -> torch.Tensor:
+    """log(e^s - 1), in the stable form s + log(-expm1(-s))."""
+    return s + torch.log(-torch.expm1(-s))
+
+
+def _span(x: torch.Tensor, min_val, max_val) -> torch.Tensor:
+    return torch.as_tensor(max_val - min_val, dtype=x.dtype, device=x.device)
+
+
+def bounded_splus_exp(x: torch.Tensor, min_val, max_val) -> torch.Tensor:
+    """Smooth map R -> (min_val, ~max_val)."""
+    span = _span(x, min_val, max_val)
+    y = x - torch.log(span) / 2.0
+    s = torch.log(1.0 / span + torch.exp(y))
+    return torch.exp(-s) + min_val
+
+
+def inverted_bounded_splus_exp(z: torch.Tensor, min_val,
+                               max_val) -> torch.Tensor:
+    """Inverse of `bounded_splus_exp`."""
+    span = _span(z, min_val, max_val)
+    s = -torch.log(z - min_val)
+    y = torch.log(torch.exp(s) - 1.0 / span)
+    return y + torch.log(span) / 2.0
+
+
+def disparity_from_depth(depth: torch.Tensor, eps: float = 1e-3):
+    return 1.0 / torch.clamp(depth, min=eps)
+
+
+def transform_points_rt(pts3d: torch.Tensor, RT: torch.Tensor):
+    """Apply a (3, 4) [R|t] to (..., 3) points."""
+    return pts3d @ RT[:, :3].T + RT[:, 3]

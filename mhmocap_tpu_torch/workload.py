@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .data.ingestion import SequenceArrays
+from .engine.fhsog import FRAMES_PER_CALL
 from .models.smpl import smpl_forward
 from .models.synthetic import make_synthetic_smpl
 from .ops import raster_cuda as RC
@@ -29,13 +30,17 @@ T, N, SIDE, WINDOW = 201, 3, 256, 160
 # window of its own in each. chip_smoke.py phase 4 (bench-ts1): chunk
 # 29, windows 160/128/112; phase 6 (the entry trees): chunk 30, windows
 # 160/112/80 (TS1) and 160/112 (TS2); phase 7 (the robust config's
-# 32-frame degraded tree): chunk 32, windows 160/112/80. The kernels
-# are timed at the first two (TIMED_SHAPES) and checked at all.
+# 32-frame degraded tree): chunk 32, windows 160/112/80; phase 9 (the
+# FHSOG build on phase 7's 256x256 output): fhsog.FRAMES_PER_CALL frames
+# of 3 bodies a call at the full-frame window 256. The kernels are timed
+# at the first two and the last (TIMED_SHAPES) and checked at all.
 KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)),
-                 (32, (160, 112, 80)))
-TIMED_SHAPES = {(b, w) for b, wins in KERNEL_SHAPES[:2] for w in wins}
-# body depth whose projection fills each window (bench placement)
-WINDOW_DEPTH = {160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
+                 (32, (160, 112, 80)), (3 * FRAMES_PER_CALL, (256,)))
+TIMED_SHAPES = {(b, w) for b, wins in KERNEL_SHAPES[:2] + KERNEL_SHAPES[3:]
+                for w in wins}
+# body depth whose projection fills each window (bench placement); the
+# full-frame window 256 holds a body at the nearest bench depth
+WINDOW_DEPTH = {256: 3.4, 160: 3.4, 128: 4.2, 112: 5.0, 80: 6.8}
 
 
 def bench_args(num_iter, bench_cycles=None, window=WINDOW, verbose=False):

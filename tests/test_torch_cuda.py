@@ -147,3 +147,36 @@ def test_cuda_autograd_function_matches_cpu(cuda_device):
         grads[dev], outs[dev] = n(vv.grad), n(o["sil"])
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-5)
     assert rel_err(grads["cuda"], grads["cpu"]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(40, 56), (72, 104)])
+def test_cuda_fhsog_full_frame_window(cuda_device, monkeypatch, size):
+    """build_fhsog_from_smpl on the card rasters each frame's bodies with
+    the forward kernel at a full-frame window (56 -> 64, 104 -> 112:
+    longer sides that are odd multiples of 8) and matches the same call
+    on CPU tensors (the plain raster): smpl_masks equal, fog, GDFs and
+    texture to rtol 1e-4."""
+    from mhmocap_tpu_torch.engine import fhsog
+    monkeypatch.setattr(fhsog, "FRAMES_PER_CALL", 2)
+    H, W = size
+    rng = np.random.RandomState(H)
+    model = make_synthetic_smpl(num_vertices=512, seed=1)
+    T, N = 3, 2
+    with torch.no_grad():
+        v = smpl_forward(model, torch.zeros((T * N, 10)),
+                         t(0.1 * rng.randn(T * N, 72)),
+                         t([[-0.3, 0.3, 3.0], [0.35, 0.3, 3.5]] * T))["verts"]
+    args = [t(4.0 + 2.0 * rng.rand(T, H, W)), t(255 * rng.rand(T, H, W, 3)),
+            t((rng.rand(T, H, W) > 0.1).astype(np.float32)),
+            v.reshape(T, N, -1, 3), model.faces,
+            t(intrinsics_from_fov((W, H), 60.0))]
+    before = TC.RasterPlanes.launches["fwd"]
+    got = fhsog.build_fhsog_from_smpl(*[a.to(cuda_device) for a in args],
+                                      1.0, 16.0, num_depth_bins=16)
+    assert TC.RasterPlanes.launches["fwd"] == before + 2
+    ref = fhsog.build_fhsog_from_smpl(*args, 1.0, 16.0, num_depth_bins=16)
+    assert torch.equal(got[3].cpu(), ref[3]) and bool(ref[3].any())
+    for k in (0, 1, 2, 4):
+        np.testing.assert_allclose(n(got[k]), n(ref[k]), rtol=1e-4,
+                                   atol=1e-5)

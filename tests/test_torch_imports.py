@@ -31,17 +31,17 @@ SCRIPT = textwrap.dedent("""
     from mhmocap_tpu_torch import (config, convert, eval_mupots, io,
                                    predict_internet, predict_mupots,
                                    profile_cycle, raster_ablation, sweep,
-                                   workload)
+                                   visualization, workload)
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
-                                        mupots, romp)
+                                        mupots, romp, utils)
     from mhmocap_tpu_torch.data import synthetic as synthetic_tree
-    from mhmocap_tpu_torch.engine import (gapfill, optimizer as E,
-                                          predictor, scene)
+    from mhmocap_tpu_torch.engine import (fhsog, gapfill, losses,
+                                          optimizer as E, predictor, scene)
     from mhmocap_tpu_torch.eval import metrics, mupots_eval
     from mhmocap_tpu_torch.models import loader, smpl, synthetic
     from mhmocap_tpu_torch.ops import (cameras, image, morphology, one_euro,
                                        raster_cuda, rasterizer)
-    from mhmocap_tpu_torch.viz import export
+    from mhmocap_tpu_torch.viz import export, viewer3d
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
@@ -54,6 +54,18 @@ SCRIPT = textwrap.dedent("""
         torch.as_tensor(cameras.intrinsics_from_fov((48, 48), 60.0)),
         rasterizer.RasterSettings(image_size=(48, 48), window=32))
     assert torch.isfinite(r["sil"]).all()
+
+    # FHSOG on a 32x40 frame: the full-frame raster, GDFs, carving
+    v2 = out["verts"].reshape(1, 2, -1, 3)
+    K2 = torch.as_tensor(cameras.intrinsics_from_fov((40, 32), 60.0))
+    fog, tex, outmask, masks, gdfs = fhsog.build_fhsog_from_smpl(
+        torch.full((1, 32, 40), 5.0), torch.zeros((1, 32, 40, 3)),
+        torch.ones((1, 32, 40)), v2, model.faces, K2, 1.0, 16.0,
+        num_depth_bins=8)
+    assert fog.shape == (8, 32, 40) and masks.any() and fog.sum() > 0
+    carved = fhsog.carve_fog_with_meshes(fog, v2[0], model.faces, 2.0, 4.0,
+                                         K2)
+    assert carved.shape == fog.shape
 
     seq, _ = workload.make_ts1_like_seq(T=6, N=2, side=64, model=model)
     args = types.SimpleNamespace(
@@ -80,7 +92,7 @@ SCRIPT = textwrap.dedent("""
     # the entry points on a port-written tree: JPEG/PNG/YAML without
     # PIL, OpenCV or PyYAML, with the robust profile and the
     # visualizations (no matplotlib)
-    import json, os
+    import json, os, shutil
     with tempfile.TemporaryDirectory() as tmp:
         synthetic_tree.generate_sequence(
             os.path.join(tmp, "data", "TS1"), num_frames=5, num_people=2,
@@ -109,6 +121,22 @@ SCRIPT = textwrap.dedent("""
             final = json.load(f)["final_results"]
         assert all(v == v for vals in final.values() for v in vals), final
         assert os.path.exists(os.path.join(out, "FinalResults.md"))
+
+        # the visualization entry point on that tree, both modes, with
+        # the color and depth captures (PNG writer, no PIL/matplotlib)
+        visualization.resolve_smpl_model = lambda path, device="cpu": model
+        for mode in ("scene", "skeleton"):
+            vcfg = sweep.write_config(os.path.join(tmp, mode + ".yml"), {{
+                "ARGS": {{"viz_mode": mode, "capture_rendered_color": True,
+                          "capture_rendered_depth": True}},
+                "smpl": {{"smpl_model_parameters_path": "/nonexistent"}}}})
+            viz = visualization.main(["--configs_yml", vcfg, "--input_path",
+                                      os.path.join(out, "TS1"), "--device",
+                                      "cpu"])
+            names = set(os.listdir(viz))
+            assert "img_000000.png" in names, names
+            assert ("scene.ply" in names) == (mode == "scene"), names
+            shutil.rmtree(viz)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
     print("PORT-OK")
@@ -116,11 +144,12 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax_and_host_deps():
-    """Import every port module and run SMPL, the raster, a tiny
-    Predictor.run, a cycle with the scene and filter refreshes, and
-    predict_mupots (with gap_aware_temporal, gap_interpolate and
-    save_visualizations) + eval_mupots on a port-written tree with
-    --device cpu, in a fresh interpreter where jax, yaml, PIL, cv2,
+    """Import every port module and run SMPL, the raster, the FHSOG build
+    and carve, a tiny Predictor.run, a cycle with the scene and filter
+    refreshes, and predict_mupots (with gap_aware_temporal,
+    gap_interpolate and save_visualizations) + eval_mupots +
+    visualization (both modes, with captures) on a port-written tree
+    with --device cpu, in a fresh interpreter where jax, yaml, PIL, cv2,
     matplotlib, optax, flax, orbax and mhmocap_tpu cannot be
     imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -129,6 +158,27 @@ def test_port_runs_without_jax_and_host_deps():
         env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "PORT-OK" in res.stdout
+
+
+@pytest.mark.parametrize("mode", ["scene", "skeleton"])
+def test_visualization_needs_a_gpu_unless_device_cpu(tmp_path, mode):
+    """visualization.main without --device runs on the card: without
+    one it raises, naming --device cpu, before it reads or writes
+    anything."""
+    import torch
+    from mhmocap_tpu_torch import visualization
+    from mhmocap_tpu_torch.config import dump_yaml
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cfg = tmp_path / "vis.yml"
+    cfg.write_text(dump_yaml({"ARGS": {"viz_mode": mode},
+                              "smpl": {"smpl_model_parameters_path": "x"}}))
+    tree = tmp_path / "tree"
+    tree.mkdir()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        visualization.main(["--configs_yml", str(cfg), "--input_path",
+                            str(tree)])
+    assert not os.listdir(tree)
 
 
 def test_tf32_off_after_import():

@@ -25,6 +25,9 @@ from mhmocap_tpu_torch.ops import morphology as TM, one_euro as TO
 
 DEGRADED = {"crossing_paths": True, "id_switch_spans": [(2, 5)],
             "detection_dropout": 0.15, "romp_person_dropout": 0.2}
+# TS3's plan of the degraded sweep tier (sweep.degradation_plan): ROMP
+# drops people and, in 10% of the frames, every person
+TS3_PLAN = {"romp_person_dropout": 0.2, "romp_missing_frames": 0.1}
 
 # Arrays that go through no float op the two packages order differently
 # (pose2d apart from the person-frames taken from the SMPL projection)
@@ -42,7 +45,8 @@ RESIZED_IMAGE_BOUND = {"max": 4, "mean": 0.3}
 def trees(tmp_path_factory):
     model = make_synthetic_smpl(num_vertices=512, seed=3)
     out = {}
-    for name, deg in (("clean", None), ("degraded", DEGRADED)):
+    for name, deg in (("clean", None), ("degraded", DEGRADED),
+                      ("ts3", TS3_PLAN)):
         root = str(tmp_path_factory.mktemp(name))
         generate_sequence(root, num_frames=8, num_people=3,
                           image_size=(96, 96), model=model, seed=5,
@@ -68,9 +72,11 @@ LOAD_KW = dict(resize_factor=1.0, post_process_depth=True,
 
 
 @pytest.mark.parametrize("tree,resize", [("clean", 1.0), ("degraded", 1.0),
-                                         ("clean", 0.5)])
+                                         ("ts3", 1.0), ("clean", 0.5)])
 def test_load_sequence_matches(trees, tree, resize):
-    """The integer, label and bookkeeping arrays are exactly equal, and
+    """The integer, label and bookkeeping arrays are exactly equal (on
+    the ts3 tree, which holds an empty ROMP frame, that includes the
+    nearest-valid SMPL rows imputed over it), and
     so are the 2D poses but for the person-frames whose lost track the
     assignment refreshed from the matched SMPL projection (all
     confidences 0.502): those come from the two packages' float32 SMPL
@@ -141,6 +147,22 @@ def test_degraded_tree_exercises_the_robust_paths(trees):
     assert (got.valid_smpl < 1.0).any()
 
 
+def test_ts3_tree_has_an_empty_romp_frame(trees):
+    """The ts3 fixture holds a frame whose ROMP file has no person, so
+    every person of it is imputed from the nearest valid frame."""
+    import glob
+    import os
+    from mhmocap_tpu_torch.data.romp import load_romp_prediction
+    roots, jm = trees
+    files = sorted(glob.glob(os.path.join(roots["ts3"], "ROMP_Predictions",
+                                          "*.npz")))
+    sizes = [len(load_romp_prediction(f)["cam"]) for f in files]
+    assert 0 in sizes, sizes
+    _, got = _load_both(roots["ts3"], jm, **LOAD_KW)
+    empty = sizes.index(0)
+    assert (got.valid_smpl[empty] < 1.0).all()
+
+
 def test_filter_2dpose_matches(trees):
     """With the One-Euro smoothing on, the 2D poses agree to 1e-4 px."""
     roots, jm = trees
@@ -209,3 +231,54 @@ def test_weak_perspective_matches():
     got = TC.weak_perspective_projection(t(p3d), t(cam), (96, 80))
     np.testing.assert_allclose(n(got), np.asarray(ref), atol=1e-4, rtol=0)
     assert TC.fov_from_focal(96, 80.0) == JC.fov_from_focal(96, 80.0)
+
+
+def test_ts3_stage1_cycles_match(trees, tmp_path):
+    """TS3's plan under the robust knobs (id_swap_fix 0.5 at ingestion,
+    gap_aware_temporal in the fit): the two packages' sequences are
+    equal as above, and 3 stage-1 cycles from the JAX package's init
+    params land where the JAX Predictor's do, to the tolerance of
+    tests/test_torch_predictor.py (all entries within RMSprop's 3-step
+    reach of 0.08, 99% within 5e-3)."""
+    import dataclasses
+    import os
+    import pickle
+    from test_torch_predictor import make_args
+    from mhmocap_tpu.data.ingestion import SequenceArrays as JSeq
+    from mhmocap_tpu.engine import optimizer as JE
+    from mhmocap_tpu.engine import predictor as JPr
+    from mhmocap_tpu_torch import convert
+    from mhmocap_tpu_torch.data.ingestion import SequenceArrays as TSeq
+    from mhmocap_tpu_torch.engine import optimizer as TE
+    from mhmocap_tpu_torch.engine import predictor as TPr
+    roots, jm = trees
+    ref, got = _load_both(roots["ts3"], jm, **dict(LOAD_KW, id_swap_fix=0.5))
+    for f in EXACT:
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f),
+                                      err_msg=f)
+    args = make_args(gap_aware_temporal=True)
+    jpred = JPr.Predictor(JSeq(**dataclasses.asdict(ref)), jm,
+                          str(tmp_path / "jax"), args)
+    jpred.run(verbose=False)
+
+    def jax_init(model, *a, **k):
+        jp, jh, opt_scale = JE.init_params(jm, *a[:4], jpred.cfg, **k)
+        return (convert.params_from_numpy([np.asarray(x) for x in jp]),
+                np.asarray(jh), opt_scale)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TE, "init_params", jax_init)
+        TPr.Predictor(TSeq(**dataclasses.asdict(got)), torch_model_of(jm),
+                      str(tmp_path / "torch"), args,
+                      device="cpu").run(verbose=False)
+    pk = {}
+    for name in ("jax", "torch"):
+        with open(os.path.join(str(tmp_path / name), "optvar_stage1.pkl"),
+                  "rb") as fh:
+            pk[name] = pickle.load(fh)
+    assert set(pk["torch"]) == set(pk["jax"])
+    for k, v in pk["jax"].items():
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            diff = np.abs(pk["torch"][k] - v)
+            assert diff.max() <= 0.08, (k, diff.max())
+            assert np.mean(diff <= 5e-3) >= 0.99, (k, np.mean(diff <= 5e-3))

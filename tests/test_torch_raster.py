@@ -482,3 +482,130 @@ def test_posed_raster_tables_match_the_plain_schedule():
     assert torch.equal(_rect_mask(TC._chunk_cells(agg, 80), 80), ref)
     zmin = TC.raster_fwd_plain(tab, 80, inv_blur, znear)[0]
     assert bool(((zmin < TC.BIG).reshape(2, -1).sum(-1) > 100).all())
+
+
+def _jax_bodies(b, st):
+    return jax.vmap(lambda v: JR.rasterize_body(v, b["jm"].faces,
+                                                jnp.asarray(b["K"]), st))(
+        jnp.asarray(b["verts"]))
+
+
+def _assert_raster_close(got, ref, z_atol, sil_atol):
+    np.testing.assert_array_equal(n(got["origin"]), np.asarray(ref["origin"]))
+    zr, zg = np.asarray(ref["zbuf"]), n(got["zbuf"])
+    assert (np.isfinite(zr) == np.isfinite(zg)).all()
+    cov = np.isfinite(zr)
+    assert cov.sum() > 20
+    np.testing.assert_allclose(zg[cov], zr[cov], atol=z_atol)
+    np.testing.assert_allclose(n(got["sil"]), np.asarray(ref["sil"]),
+                               atol=sil_atol)
+
+
+def test_segment_mode_matches(body):
+    """sil_mode "segment" (exact point-triangle distance) on the brute
+    path: the same covered pixels, z to 1e-5 m, silhouette to 1e-4."""
+    kw = dict(image_size=(64, 64), window=48, face_chunk=128,
+              sil_mode="segment", backend="brute")
+    ref = _jax_bodies(body, JR.RasterSettings(**kw))
+    got = TR.rasterize_bodies(t(body["verts"]), body["tm"].faces,
+                              t(body["K"]), TR.RasterSettings(**kw))
+    _assert_raster_close(got, ref, 1e-5, 1e-4)
+    with pytest.raises(ValueError, match="edge_lines"):
+        TR.rasterize_bodies(t(body["verts"]), body["tm"].faces, t(body["K"]),
+                            TR.RasterSettings(**dict(kw, backend="auto")))
+
+
+@pytest.mark.parametrize("sil_mode", ["edge_lines", "segment"])
+@pytest.mark.parametrize("cull", [False, True])
+def test_tiles_backend_matches(body, sil_mode, cull):
+    """The tiles backend against the JAX package's, with a cap above
+    every tile's face count (so top-k's order of equal keys cannot
+    matter), and against the port's brute path, which it equals there
+    but for the faces the back-face cull drops: z to 1e-5 m, silhouette
+    to 1e-4."""
+    kw = dict(image_size=(64, 64), window=48, face_chunk=128, tile=4,
+              faces_per_tile=800, tile_chunk=64, sil_mode=sil_mode,
+              backface_cull=cull)
+    ref = _jax_bodies(body, JR.RasterSettings(backend="tiles", **kw))
+    tiles = TR.rasterize_bodies(t(body["verts"]), body["tm"].faces,
+                                t(body["K"]),
+                                TR.RasterSettings(backend="tiles", **kw))
+    _assert_raster_close(tiles, ref, 1e-5, 1e-4)
+    if not cull:
+        brute = TR.rasterize_bodies(t(body["verts"]), body["tm"].faces,
+                                    t(body["K"]),
+                                    TR.RasterSettings(backend="brute", **kw))
+        _assert_raster_close(tiles, {k: n(v) for k, v in brute.items()},
+                             1e-5, 1e-4)
+
+
+def test_tiles_capped_matches_without_ties():
+    """A cap below the tiles' face counts on the two-triangle mesh (no
+    two faces share a nearest z): the kept faces are the same in both
+    packages."""
+    verts = np.array([
+        [-0.2, -0.2, 2.0], [0.3, -0.1, 2.1], [0.0, 0.35, 2.2],
+        [-0.1, -0.3, 4.0], [0.5, -0.2, 4.1], [0.1, 0.5, 4.2],
+        [-0.4, -0.1, 3.0], [0.2, -0.4, 3.1], [0.2, 0.3, 3.3]], np.float32)
+    faces = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    K = np.array([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32)
+    kw = dict(image_size=(64, 64), window=64, face_chunk=2, tile=4,
+              faces_per_tile=2, tile_chunk=1, backend="tiles")
+    ref = JR.rasterize_body(jnp.asarray(verts), jnp.asarray(faces),
+                            jnp.asarray(K), JR.RasterSettings(**kw))
+    got = TR.rasterize_body(t(verts), torch.as_tensor(faces.astype(np.int64)),
+                            t(K), TR.RasterSettings(**kw))
+    _assert_raster_close(got, ref, 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("sil_mode", ["edge_lines", "segment"])
+def test_full_image_raster_matches(sil_mode):
+    """full_image_raster on a square image (the brute path in segment
+    mode, the main path in edge_lines) against the JAX package's;
+    a rectangular image is refused."""
+    verts, faces = _tri_mesh()
+    K64 = np.array([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32)
+    backend = "brute" if sil_mode == "segment" else "auto"
+    ref = JR.full_image_raster(jnp.asarray(verts), jnp.asarray(faces),
+                               jnp.asarray(K64), (64, 64), face_chunk=2,
+                               sil_mode=sil_mode)
+    got = TR.full_image_raster(t(verts),
+                               torch.as_tensor(faces.astype(np.int64)),
+                               t(K64), (64, 64), face_chunk=2,
+                               sil_mode=sil_mode, backend=backend)
+    assert got["zbuf"].shape == (64, 64)
+    _assert_raster_close(got, ref, 1e-5, 1e-4)
+    with pytest.raises(ValueError, match="square"):
+        TR.full_image_raster(t(verts), torch.as_tensor(faces), t(K64),
+                             (64, 48))
+
+
+@pytest.mark.parametrize("origin", [(3, 5), (20, 0), (-4, 30)])
+def test_scatter_window_to_image_matches(origin):
+    """Windows of 1 and 2 leading dims placed into a 32x24 image, the
+    origin clamped as lax.dynamic_update_slice clamps it: exact."""
+    rng = np.random.RandomState(0)
+    for shape in ((16, 16), (2, 16, 16)):
+        vals = rng.randn(*shape).astype(np.float32)
+        ref = JR.scatter_window_to_image(jnp.asarray(vals),
+                                         jnp.asarray(origin), (32, 24),
+                                         fill=-1.0)
+        got = TR.scatter_window_to_image(t(vals), torch.tensor(origin),
+                                         (32, 24), fill=-1.0)
+        np.testing.assert_array_equal(n(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("size", [(40, 24), (24, 40), (64, 64), (1048, 900)])
+def test_full_frame_window(size):
+    """The port's full-frame window is the longer side rounded up to 16
+    (the JAX package rounds to 8), a window the kernels take; the origin
+    clamps to (0, 0) for it."""
+    win = TR.full_frame_window(size)
+    assert win % 16 == 0 and max(size) <= win < max(size) + 16
+    TC._check_window(win)
+    st = TR.RasterSettings(image_size=size, window=win)
+    uv = torch.tensor([[[0.0, 0.0], [float(size[0]), float(size[1])]]])
+    assert n(TR.window_origin(uv, torch.full((1, 2), 3.0), st)).tolist() \
+        == [[0, 0]]
+    with pytest.raises(ValueError, match="512 threads"):
+        TC._check_window(1048)
