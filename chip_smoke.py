@@ -9,10 +9,11 @@ Phases (any failure raises, so the process exits non-zero):
      sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
      ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
-     at every raster call shape of phases 4, 6, 7 and 9
-     (workload.KERNEL_SHAPES: posed full-size bodies, 29 per call at
-     windows 160/128/112, 30 at 160/112/80, phase 7's, and 12 at the
-     full-frame 256; errors printed beside their bounds), the forward's
+     at every raster call shape of phases 4, 6, 7, 9 and 10 and of
+     bench-ts1 on 4 ranks (workload.KERNEL_SHAPES: posed full-size
+     bodies, 29 per call at windows 160/128/112, 30 at 160/112/80,
+     phase 7's, 12 at the full-frame 256, 34 and 17 at 160/128/112;
+     errors printed beside their bounds), the forward's
      log1pf shortcut checked, two forward and two backward launches
      bit-identical, then, at the shapes of phases 4, 6 and 9
      (workload.TIMED_SHAPES), timed against the plain version on
@@ -69,7 +70,20 @@ Phases (any failure raises, so the process exits non-zero):
      frames, and `carve_fog_with_meshes` at full size with frame 0's
      bodies, checked against the CPU on a strided subset of voxels;
      prints the seconds of each step and the raster's share of the
-     build.
+     build;
+ 10. sharded: bench-ts1 with its frames sharded over 2 ranks on the one
+     card (`parallel/spmd.py`; gloo, since NCCL refuses two ranks on one
+     GPU; the ranks started by `parallel/ranks.run_ranks`, file
+     rendezvous, a deadline): chunk 34 x 3 a rank, padded 204, windows
+     160/128/112, from one init written by this process, the fused
+     cycles 30, 31 and 50 (scene rebuilds, filter refreshes at 30 and
+     50) against the same cycles in this process on the same layout:
+     cycle 30's loss, parts and gradients, the params after the three
+     cycles, betas and xscale equal on both ranks, 9 forward and 9
+     backward launches a rank a cycle, the raster call shapes against
+     phase 3's; prints the seconds a cycle of both (a correctness run:
+     two ranks on one card measure no speed-up) and the bytes each rank
+     holds.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -1002,6 +1016,209 @@ def phase_visualization_fhsog(tmp, robust_dir):
     return launches
 
 
+# Phase 10: bench-ts1 with its frames sharded over 2 ranks on the one
+# card. NCCL refuses two ranks on one GPU, so the ranks exchange over
+# gloo with CUDA tensors (all_gather only); each rank builds nothing (the
+# parent built the kernels in phase 2) and runs both kernels on its own
+# chunks. A correctness run: two ranks on one card measure no speed-up.
+SHARD_SPEC = {"T": 201, "N": 3, "side": 256, "V": None, "window": 160,
+              "ranks": 2}
+SHARD_CYCLES = (30, 31, 50)      # scene rebuilds at all; filters at 30, 50
+SHARD_TIMEOUT = 600.0
+# against the single process on the same layout: loss and parts
+# relative, gradients relative norm, params after the cycles absolute.
+# The sharded cycle adds the chunks' shared terms in the single process's
+# order, so on the CPU the two agree bit for bit (tests/test_torch_spmd.py);
+# the phase prints whether they do on the card.
+SHARD_BOUNDS = {"loss": 1e-5, "grad": 1e-4, "params": 5e-3}
+
+
+def _shard_case(spec, device):
+    """(seq, model, cfg, coefs) of the sharded workload: the Predictor's
+    windows and coefficients with the time layout of spec["ranks"]."""
+    import dataclasses
+    from mhmocap_tpu_torch.engine.predictor import (Predictor,
+                                                    tune_time_layout)
+    from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+    from mhmocap_tpu_torch.workload import bench_args, make_ts1_like_seq
+    model = (None if spec["V"] is None
+             else make_synthetic_smpl(num_vertices=spec["V"], seed=1))
+    seq, model = make_ts1_like_seq(T=spec["T"], N=spec["N"],
+                                   side=spec["side"], model=model)
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = Predictor(seq, model, tmp, bench_args(1, None, spec["window"]),
+                         device=device)
+    chunk, bucket = tune_time_layout(spec["T"], spec["ranks"])
+    cfg = dataclasses.replace(pred.cfg, chunk=chunk, frame_bucket=bucket)
+    return seq, pred.model, cfg, pred.coefs
+
+
+def _shard_run(spec, params_np, cycles, device, mesh=None):
+    """The first cycle's loss and gradient (after its refreshes), then
+    the fused cycles, each timed between synchronizations (and barriers)
+    with the raster launches counted from 0: sharded over `mesh`, or in
+    this process without one."""
+    from mhmocap_tpu_torch import convert
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    from mhmocap_tpu_torch.parallel import spmd as S
+    dev = torch.device(device)
+    seq, model, cfg, coefs = _shard_case(spec, dev)
+    params = convert.params_from_numpy(params_np, dev)
+    data = E.prepare_seq_data(seq, cfg, dev)
+    aux = E.init_aux(cfg, model.num_vertices, torch.as_tensor(
+        np.mean(seq.betas_smpl, axis=0, keepdims=True), device=dev))
+    state = E.rmsprop_init(params)
+    if mesh is not None:
+        data, aux = S.shard_data(data, mesh), S.shard_aux(aux, mesh)
+        state = S.shard_opt_state(state, mesh)
+        params = S.shard_params(params, mesh)
+        held = {"local data": _nbytes(*data.local),
+                "full-T scene inputs": _nbytes(*data.scene[:3]),
+                "params + RMSprop": 3 * _nbytes(*params),
+                "filtered targets": _nbytes(aux.verts_filt_diff)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if mesh is not None:
+            mesh.barrier()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if mesh is None:
+        aux0 = E.fused_aux_refresh(params, aux, cycles[0], model, data, cfg)
+        loss, parts, grads = E.cycle_loss_and_grads(params, model, data,
+                                                    aux0, coefs, cfg)
+    else:
+        aux0 = S.spmd_fused_aux_refresh(params, aux, cycles[0], model, data,
+                                        cfg, mesh)
+        loss, parts, grads = S.spmd_cycle_loss_and_grads(
+            params, model, data, aux0, coefs, cfg, mesh)
+        grads = S.gather_params(grads, mesh)
+    out = {"loss0": float(loss), "parts0": parts.cpu().numpy(),
+           "grads0": [g.cpu().numpy() for g in grads], "seconds": [],
+           "launches": [], "losses": [], "calls": sorted(_raster_calls(cfg)),
+           "local_chunks": cfg.padded_frames // (spec["ranks"] * cfg.chunk),
+           "cfg": (cfg.chunk, cfg.padded_frames, cfg.person_windows)}
+    del aux0, grads
+    for c in cycles:
+        sync()
+        for k in RasterPlanes.launches:
+            RasterPlanes.launches[k] = 0
+        t0 = time.time()
+        if mesh is None:
+            params, state, aux, loss, _ = E.stage1_cycle_fused(
+                params, state, aux, c, model, data, coefs, cfg)
+        else:
+            params, state, aux, loss, _ = S.spmd_stage1_cycle_fused(
+                params, state, aux, c, model, data, coefs, cfg, mesh)
+        sync()
+        out["seconds"].append(time.time() - t0)
+        out["launches"].append(dict(RasterPlanes.launches))
+        out["losses"].append(float(loss))
+    if mesh is not None:
+        out["replicated"] = [params.betas.cpu().numpy(),
+                             params.xscale.cpu().numpy()]
+        out["held"] = held
+        params = S.gather_params(params, mesh)
+    out["params"] = [x.cpu().numpy() for x in params]
+    out["peak"] = (torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else 0)
+    return out
+
+
+def _shard_rank(mesh, payload):
+    """A rank of phase 10 (started by parallel.ranks.run_ranks)."""
+    return _shard_run(payload["spec"], payload["params"], payload["cycles"],
+                      mesh.device, mesh)
+
+
+def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
+    """Phase 10: `spmd_stage1_cycle_fused` on spec["ranks"] gloo ranks
+    against `stage1_cycle_fused` in this process, on the same layout,
+    from the same init params."""
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.parallel.ranks import run_ranks
+    seq, model, cfg, _ = _shard_case(spec, device)
+    D = spec["ranks"]
+    print(f"[10 sharded] T={cfg.num_frames} padded {cfg.padded_frames}, "
+          f"chunk {cfg.chunk} x {cfg.padded_frames // (D * cfg.chunk)} a "
+          f"rank on {D} gloo ranks on {rank_device}, windows "
+          f"{cfg.person_windows}, cycles {SHARD_CYCLES}", flush=True)
+    _check_raster_calls(cfg, "10 sharded")
+    params, _, _ = E.init_params(model, seq.pose2d, seq.poses_smpl,
+                                 seq.betas_smpl, seq.cam["K"], cfg)
+    params_np = [x.cpu().numpy() for x in params]
+    del seq, model, params
+    t0 = time.time()
+    ranks = run_ranks("chip_smoke:_shard_rank", D,
+                      {"spec": spec, "params": params_np,
+                       "cycles": SHARD_CYCLES}, device=rank_device,
+                      backend="gloo", timeout=SHARD_TIMEOUT,
+                      path=[os.path.dirname(os.path.abspath(__file__))])
+    ranks_s = time.time() - t0
+    single = _shard_run(spec, params_np, SHARD_CYCLES, device)
+
+    fails = []
+    want = {k: (len(cfg.window_groups) * ranks[0]["local_chunks"]
+                if torch.device(device).type == "cuda" else 0)
+            for k in ("fwd", "bwd")}
+    names = ("poses_T", "poses_smpl", "betas", "zmin_lin", "zmax_lin",
+             "xscale")
+    for r, got in enumerate(ranks):
+        rel = abs(got["loss0"] - single["loss0"]) / abs(single["loss0"])
+        prel = float(np.max(np.abs(got["parts0"] - single["parts0"])
+                            / np.maximum(np.abs(single["parts0"]), 1e-30)))
+        grel = {k: float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                      1e-30))
+                for k, a, b in zip(names, got["grads0"], single["grads0"])}
+        perr = {k: float(np.abs(a - b).max())
+                for k, a, b in zip(names, got["params"], single["params"])}
+        same = (got["losses"] == single["losses"] and all(
+            np.array_equal(a, b) for a, b in zip(got["params"],
+                                                 single["params"])))
+        print(f"[10 sharded] rank {r} vs one process, cycle "
+              f"{SHARD_CYCLES[0]}: loss rel err {rel:.3g}, parts max rel "
+              f"err {prel:.3g} (bound {SHARD_BOUNDS['loss']:g}); gradient "
+              f"rel norm err " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in grel.items())
+              + f" (bound {SHARD_BOUNDS['grad']:g}); params after "
+              f"{len(SHARD_CYCLES)} cycles max err " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in perr.items())
+              + f" (bound {SHARD_BOUNDS['params']:g}); losses "
+              f"{got['losses']} vs {single['losses']}; bit-identical "
+              f"{same}; raster launches per "
+              f"cycle {got['launches']} (want {want}); layout "
+              f"{got['cfg']}; held {got['held']} bytes, peak "
+              f"{got['peak'] / 2**30:.2f} GiB", flush=True)
+        if not (rel <= SHARD_BOUNDS["loss"] and prel <= SHARD_BOUNDS["loss"]):
+            fails.append(f"rank {r} loss/parts {rel}, {prel}")
+        fails += [f"rank {r} gradient {k}: {v}" for k, v in grel.items()
+                  if not v <= SHARD_BOUNDS["grad"]]
+        fails += [f"rank {r} params {k}: {v}" for k, v in perr.items()
+                  if not v <= SHARD_BOUNDS["params"]]
+        if any(n != want for n in got["launches"]):
+            fails.append(f"rank {r} raster launches {got['launches']}")
+        if got["calls"] != single["calls"] or got["cfg"] != single["cfg"]:
+            fails.append(f"rank {r} layout {got['cfg']} {got['calls']}")
+        for a, b in zip(got["replicated"], ranks[0]["replicated"]):
+            if not np.array_equal(a, b):
+                fails.append(f"rank {r} betas/xscale differ from rank 0's")
+    per_rank = np.max([g["seconds"] for g in ranks], axis=0)
+    print(f"[10 sharded] seconds a cycle at {SHARD_CYCLES}: {D} ranks "
+          f"{np.round(per_rank, 4).tolist()}, one process "
+          f"{np.round(single['seconds'], 4).tolist()} (a correctness run: "
+          f"{D} ranks share one card, so this is no scaling measurement); "
+          f"ranks' command {ranks_s:.1f}s", flush=True)
+    if torch.device(device).type == "cuda":
+        print(f"[10 sharded] nvidia-smi: {smi_line()}", flush=True)
+    if fails:
+        raise AssertionError("sharded vs one process: " + "; ".join(fails))
+    return {k: sum(n[k] for g in ranks for n in g["launches"])
+            for k in ("fwd", "bwd")}
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
@@ -1015,8 +1232,10 @@ def main():
         phase_checkpoint(os.path.join(tmp, "ckpt"))
         fhsog_launches = phase_visualization_fhsog(
             tmp, os.path.join(tmp, "robust", "out", f"TS{ROBUST_TS}"))
+    shard_launches = phase_sharded()
     # the launches of every main-path run, each counted from 0
     launches = {k: main_launches[k] + robust_launches[k] + fhsog_launches[k]
+                + shard_launches[k]
                 + sum(v[k] for v in entry_launches.values())
                 for k in main_launches}
     # times and bounds at B=29, window 160; no single PyTorch call

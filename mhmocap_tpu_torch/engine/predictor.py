@@ -1,13 +1,19 @@
 """Prediction driver: init solve + stage-1 fit + output pickles.
 
-Port of `mhmocap_tpu/engine/predictor.py` on a single device: window
-sizing, `run` (init solve, `optvar_init.pkl`, the stage-1 fit,
-`optvar_stage1.pkl` with the JAX package's schema, the optional post-fit
-gap interpolation and visualization exports) and `fit`, the cycle loop
-with its optional checkpoints (`checkpoint_every`, `torch.save` in
-place of orbax) and a `torch.profiler` trace of cycle 2
-(`profile_dir`); and `build_studio_sequence`, the studio-camera
-ingestion.
+Port of `mhmocap_tpu/engine/predictor.py`: the time layout
+(`tune_time_layout`), window sizing, `run` (init solve,
+`optvar_init.pkl`, the stage-1 fit, `optvar_stage1.pkl` with the JAX
+package's schema, the optional post-fit gap interpolation and
+visualization exports) and `fit`, the cycle loop with its optional
+checkpoints (`checkpoint_every`, `torch.save` in place of orbax) and a
+`torch.profiler` trace of cycle 2 (`profile_dir`); and
+`build_studio_sequence`, the studio-camera ingestion.
+
+When a default process group of more than one rank is initialised (an
+entry point under `torch.distributed.run`), the fit shards the time
+axis over its ranks (`parallel/spmd.py`), as the JAX package does over
+its devices; rank 0 alone writes the pickles, checkpoints, traces and
+visualizations, from the gathered parameters.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import glob
 import os
 import pickle
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -26,23 +33,59 @@ from ..data.ingestion import SequenceArrays
 from ..models.smpl import SMPLModel
 from ..ops.image import fillin_masked
 from ..ops.rasterizer import preorder_faces
+from ..parallel import spmd as S
 from ..viz.export import (save_visualization_init_data,
                           save_visualization_stage1)
 from . import optimizer as E
 from .gapfill import interpolate_gap_trajectories
 
 
-def tune_time_layout(T: int, user_bucket: int = 0, batch_size: int = 10):
-    """(chunk, frame_bucket) for a T-frame fit on one device: the
-    user's bucket with chunk = batch_size, or else the chunk in [16, 48]
-    (2..8 below 32 frames) that minimizes the padded length, preferring
-    larger chunks on ties."""
+def tune_time_layout(T: int, n_dev: int = 1, user_bucket: int = 0,
+                     batch_size: int = 10):
+    """(chunk, frame_bucket) for a T-frame fit whose time axis is sharded
+    over n_dev ranks; every padded frame costs raster and SMPL work on
+    its rank, so the padding is minimized.
+
+    * n_dev == 1, user bucket: the bucket verbatim, chunk = batch_size.
+    * n_dev == 1, no bucket: the chunk in [16, 48] (2..8 below 32
+      frames) that minimizes the padded length, larger chunks on ties.
+    * n_dev > 1, user bucket: padding lands on multiples of
+      lcm(n_dev * chunk, bucket); the chunk (2..48, 2..8 below 32
+      frames) minimizing the padded length, then the bucket, then the
+      steps; a RuntimeWarning when the lcm inflates the bucket.
+    * n_dev > 1, no bucket: the chunk in 2..48 minimizing the padding
+      under padded % (n_dev * chunk) == 0 (small chunks stay candidates:
+      a floor of 16 would pad T=64 on 8 ranks to 128), larger on ties.
+    """
     T = int(T)
+    if n_dev <= 1:
+        if user_bucket:
+            return max(int(batch_size), 2), user_bucket
+        cands = range(2, 9) if T < 32 else range(16, 49)
+        chunk = min(cands, key=lambda c: (-(-T // c) * c, -c))
+        return chunk, chunk
+
     if user_bucket:
-        return max(int(batch_size), 2), user_bucket
-    cands = range(2, 9) if T < 32 else range(16, 49)
-    chunk = min(cands, key=lambda c: (-(-T // c) * c, -c))
-    return chunk, chunk
+        cands = range(2, 9) if T < 32 else range(2, 49)
+
+        def key(c):
+            b = int(np.lcm(c * n_dev, user_bucket))
+            return (-(-T // b) * b, b, -c)
+
+        chunk = min(cands, key=key)
+        bucket = int(np.lcm(chunk * n_dev, user_bucket))
+        if bucket > user_bucket:
+            warnings.warn(
+                f"frame_bucket {user_bucket} inflated to its lcm "
+                f"{bucket} with devices*chunk = {n_dev * chunk}: "
+                f"sequences pad at multiples of {bucket} frames. Pick a "
+                f"frame_bucket that is a multiple of {n_dev} to avoid "
+                f"the padding.", RuntimeWarning)
+        return chunk, bucket
+
+    chunk = min(range(2, 49), key=lambda c: (
+        -(-T // (n_dev * c)) * (n_dev * c), -c))
+    return chunk, n_dev * chunk
 
 
 KEEP_CHECKPOINTS = 2
@@ -102,8 +145,15 @@ class Predictor:
             getattr(parsed_args, "save_visualizations", False))
 
         W, H = seq.image_size
+        # shard the time axis over the ranks of an initialised default
+        # process group, unless the args set spmd to False
+        n_dev = S.world_size()
+        self.use_spmd = (bool(getattr(parsed_args, "spmd", n_dev > 1))
+                         and n_dev > 1)
+        self.mesh = S.default_mesh(self.device) if self.use_spmd else None
+        self.writer = self.mesh is None or self.mesh.rank == 0
         chunk, bucket = tune_time_layout(
-            int(seq.num_frames),
+            int(seq.num_frames), n_dev if self.use_spmd else 1,
             int(getattr(parsed_args, "frame_bucket", 0) or 0),
             batch_size=int(getattr(parsed_args, "batch_size", 10)))
         self.cfg = E.EngineConfig(
@@ -242,7 +292,8 @@ class Predictor:
     # ------------------------------------------------------------------
     def run(self, verbose: bool = True) -> Dict:
         seq, cfg = self.seq, self.cfg
-        verbose = verbose and getattr(self.args, "verbose", True)
+        verbose = (verbose and getattr(self.args, "verbose", True)
+                   and self.writer)
         t0 = time.time()
         params, init_hist, optimize_scale = E.init_params(
             self.model, seq.pose2d, seq.poses_smpl, seq.betas_smpl,
@@ -256,11 +307,12 @@ class Predictor:
         init_optvar = E.get_optimized_variables(params, cfg,
                                                 seq.valid_smpl)
         init_optvar["pose2d"] = seq.pose2d
-        with open(os.path.join(self.output_path, "optvar_init.pkl"),
-                  "wb") as f:
-            pickle.dump(init_optvar, f)
+        if self.writer:
+            with open(os.path.join(self.output_path, "optvar_init.pkl"),
+                      "wb") as f:
+                pickle.dump(init_optvar, f)
         init_log = [{"loss_2d": v} for v in init_hist]
-        if self.save_visualizations:
+        if self.save_visualizations and self.writer:
             tv = time.time()
             save_visualization_init_data(
                 self.output_path, seq, self.model, init_optvar, init_hist,
@@ -294,11 +346,12 @@ class Predictor:
             if verbose and n_gap:
                 print(f"gap_interpolate: {n_gap} unobserved person-frames "
                       f"interpolated", flush=True)
-        with open(os.path.join(self.output_path, "optvar_stage1.pkl"),
-                  "wb") as f:
-            pickle.dump(stage1_optvar, f)
+        if self.writer:
+            with open(os.path.join(self.output_path, "optvar_stage1.pkl"),
+                      "wb") as f:
+                pickle.dump(stage1_optvar, f)
 
-        if self.save_visualizations:
+        if self.save_visualizations and self.writer:
             tv = time.time()
             save_visualization_stage1(self.output_path, seq, self.model,
                                       stage1_optvar, init_optvar["pose2d"],
@@ -325,8 +378,15 @@ class Predictor:
         from the newest checkpoint there, running only the cycles after
         it; the aux state (scene, filtered targets) is not saved and
         starts afresh, as in the JAX package. With `profile_dir` it
-        writes a torch.profiler Chrome trace of cycle 2 there."""
-        seq, cfg, model = self.seq, self.cfg, self.model
+        writes a torch.profiler Chrome trace of cycle 2 there.
+
+        Sharded (`use_spmd`), each rank keeps its frames of the data,
+        params and RMSprop state; the bench marks synchronize and then
+        wait for every rank; a checkpoint holds the gathered state, and
+        every rank resumes its own frames from it; the params returned
+        are the gathered ones."""
+        seq, cfg, model, mesh = self.seq, self.cfg, self.model, self.mesh
+        verbose = verbose and self.writer
         data = E.prepare_seq_data(seq, cfg, self.device)
         betas_ref = torch.as_tensor(
             np.mean(seq.betas_smpl, axis=0, keepdims=True).astype(
@@ -342,7 +402,16 @@ class Predictor:
             if restored is not None:
                 last, params, opt_state = restored
                 start_cycle = last + 1
-                print(f"resumed from checkpoint at cycle {last}", flush=True)
+                if self.writer:
+                    print(f"resumed from checkpoint at cycle {last}",
+                          flush=True)
+        if mesh is not None:
+            data, aux = S.shard_data(data, mesh), S.shard_aux(aux, mesh)
+            params = S.shard_params(params, mesh)
+            opt_state = S.shard_opt_state(opt_state, mesh)
+            if self.writer:
+                print(f"fit: sharding {cfg.padded_frames} frames over "
+                      f"{mesh.size} devices", flush=True)
         profile_dir = getattr(self.args, "profile_dir", None)
         prof = None
 
@@ -352,6 +421,8 @@ class Predictor:
         def mark(cycle):
             if cycle in bench_set and cycle > 0:
                 self._sync()
+                if mesh is not None:
+                    mesh.barrier()
                 bench_marks.append(time.time())
                 self.bench_window_seconds = [
                     b - a for a, b in zip(bench_marks, bench_marks[1:])]
@@ -360,11 +431,17 @@ class Predictor:
         t_start = time.time()
         for cycle in range(start_cycle, self.num_iter):
             mark(cycle)
-            if profile_dir and cycle == 2:
+            if profile_dir and cycle == 2 and self.writer:
                 prof = self._start_profiler()
-            params, opt_state, aux, loss, parts = E.stage1_cycle_fused(
-                params, opt_state, aux, cycle, model, data, self.coefs,
-                cfg, optimize_scale=optimize_scale)
+            if mesh is None:
+                params, opt_state, aux, loss, parts = E.stage1_cycle_fused(
+                    params, opt_state, aux, cycle, model, data, self.coefs,
+                    cfg, optimize_scale=optimize_scale)
+            else:
+                params, opt_state, aux, loss, parts = \
+                    S.spmd_stage1_cycle_fused(
+                        params, opt_state, aux, cycle, model, data,
+                        self.coefs, cfg, mesh, optimize_scale=optimize_scale)
             if prof is not None:
                 self._sync()
                 prof.stop()
@@ -376,7 +453,7 @@ class Predictor:
             parts_log.append(parts)
             losses.append(loss)
             if ckpt_every > 0 and (cycle + 1) % ckpt_every == 0:
-                save_checkpoint(ckpt_dir, cycle, params, opt_state)
+                self._checkpoint(ckpt_dir, cycle, params, opt_state)
             if verbose and (cycle % 25 == 0 or cycle == self.num_iter - 1):
                 print(f"cycle {cycle:4d} loss={float(loss):.4f} "
                       f"({(time.time() - t_start):.1f}s)", flush=True)
@@ -387,9 +464,23 @@ class Predictor:
                if parts_log else [])
         self.stage1_losses = (torch.stack(losses).cpu().numpy()
                               if losses else np.zeros((0,), np.float32))
+        if mesh is not None:
+            params = S.gather_params(params, mesh)
         self._params = params
         self._aux = aux
-        return log, self._final_scene(params, data, aux)
+        return log, (self._final_scene(aux) if self.writer else None)
+
+    # ------------------------------------------------------------------
+    def _checkpoint(self, ckpt_dir, cycle, params, opt_state):
+        """save_checkpoint; sharded, of the gathered state, by rank 0,
+        and every rank waits until the file is there."""
+        if self.mesh is not None:
+            params = S.gather_params(params, self.mesh)
+            opt_state = S.gather_opt_state(opt_state, self.mesh)
+        if self.writer:
+            save_checkpoint(ckpt_dir, cycle, params, opt_state)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ------------------------------------------------------------------
     def _start_profiler(self):
@@ -401,7 +492,7 @@ class Predictor:
         return prof
 
     # ------------------------------------------------------------------
-    def _final_scene(self, params, data, aux) -> Optional[Dict]:
+    def _final_scene(self, aux) -> Optional[Dict]:
         """Median background image over time + fill-in, plus the last
         scene depth, for the output pickle."""
         seq = self.seq

@@ -8,6 +8,10 @@ Usage:
         --configs_yml configs/default.yml \
         --input_path ./data/input_video --output_path ./output/video \
         [--device cuda]
+
+Under `python -m torch.distributed.run --nproc_per_node D -m
+mhmocap_tpu_torch.predict_internet ...` the fit shards the frames over
+the ranks, as `predict_mupots` does.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .data.ingestion import load_sequence
 from .engine.predictor import Predictor
 from .models.loader import resolve_smpl_model
 from .models.smpl import joints_function
+from .parallel.spmd import launcher_mesh
 
 
 def build_internet_sequence(
@@ -73,7 +78,9 @@ def build_internet_sequence(
 def main(argv=None):
     parsed = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(parsed)
-    with ConfigContext(parsed):
+    with launcher_mesh(device) as mesh, ConfigContext(parsed):
+        if mesh is not None:
+            device = mesh.device
         kargs = dict(parsed.smpl)
         kargs.update(parsed.data)
         print("Info: writing output to", parsed.output_path)
@@ -92,10 +99,11 @@ def main(argv=None):
                               parsed_args=parsed, device=device)
         log = predictor.run()
 
-        sv = log["stage1_optvar"]
-        print("scale_factor", sv["scale_factor"].squeeze())
-        print("min_z", sv["min_z"].squeeze())
-        print("max_z", sv["max_z"].squeeze())
+        if predictor.writer:
+            sv = log["stage1_optvar"]
+            print("scale_factor", sv["scale_factor"].squeeze())
+            print("min_z", sv["min_z"].squeeze())
+            print("max_z", sv["max_z"].squeeze())
 
 
 if __name__ == "__main__":

@@ -11,6 +11,12 @@ Usage:
     python -m mhmocap_tpu_torch.predict_mupots \
         --configs_yml configs/predict_mupots.yml --ts_id 1 \
         --output_path ./output/mupots [--device cuda]
+
+Under a launcher the fit shards the sequence's frames over the ranks
+(`parallel/spmd.py`): every rank ingests, rank 0 writes. NCCL with one
+card a rank (cuda:LOCAL_RANK), or gloo with `--device cpu`:
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m mhmocap_tpu_torch.predict_mupots ... [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from .data.ingestion import load_sequence
 from .engine.predictor import Predictor
 from .models.loader import resolve_smpl_model
 from .models.smpl import joints_function
+from .parallel.spmd import launcher_mesh
 
 
 def build_mupots_sequence(
@@ -95,7 +102,9 @@ def main(argv=None):
     of each visualization export (when the config saves them)."""
     parsed = parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(parsed)
-    with ConfigContext(parsed):
+    with launcher_mesh(device) as mesh, ConfigContext(parsed):
+        if mesh is not None:
+            device = mesh.device
         kargs = dict(parsed.smpl)
         kargs.update(parsed.data)
         output_path = os.path.join(parsed.output_path,
@@ -117,16 +126,17 @@ def main(argv=None):
                               parsed_args=parsed, device=device)
         result = predictor.run()
 
-        with open(os.path.join(output_path, "mupots_annot.pkl"),
-                  "wb") as f:
-            pickle.dump({
-                "pose3d_gt": p3d,
-                "pose3d_univ_gt": p3d_univ,
-                "visibility": vis,
-                # the working-resolution intrinsics, so that evaluation
-                # need not re-ingest the dataset
-                "cam_K": seq.cam["K"],
-            }, f)
+        if predictor.writer:
+            with open(os.path.join(output_path, "mupots_annot.pkl"),
+                      "wb") as f:
+                pickle.dump({
+                    "pose3d_gt": p3d,
+                    "pose3d_univ_gt": p3d_univ,
+                    "visibility": vis,
+                    # the working-resolution intrinsics, so that
+                    # evaluation need not re-ingest the dataset
+                    "cam_K": seq.cam["K"],
+                }, f)
     return {"output_path": output_path, "ingest_seconds": timings,
             "engine_config": predictor.cfg,
             "init_seconds": predictor.init_seconds,

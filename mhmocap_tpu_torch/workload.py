@@ -32,11 +32,14 @@ T, N, SIDE, WINDOW = 201, 3, 256, 160
 # 160/112/80 (TS1) and 160/112 (TS2); phase 7 (the robust config's
 # 32-frame degraded tree): chunk 32, windows 160/112/80; phase 9 (the
 # FHSOG build on phase 7's 256x256 output): fhsog.FRAMES_PER_CALL frames
-# of 3 bodies a call at the full-frame window 256. The kernels are timed
-# at the first two and the last (TIMED_SHAPES) and checked at all.
+# of 3 bodies a call at the full-frame window 256; bench-ts1 sharded over
+# 2 ranks (phase 10: chunk 34, 3 chunks a rank, padded 204) and over 4
+# (chunk 17). The kernels are timed at the first two and the FHSOG's
+# (TIMED_SHAPES) and checked at all.
 KERNEL_SHAPES = ((29, (160, 128, 112)), (30, (160, 112, 80)),
-                 (32, (160, 112, 80)), (3 * FRAMES_PER_CALL, (256,)))
-TIMED_SHAPES = {(b, w) for b, wins in KERNEL_SHAPES[:2] + KERNEL_SHAPES[3:]
+                 (32, (160, 112, 80)), (3 * FRAMES_PER_CALL, (256,)),
+                 (34, (160, 128, 112)), (17, (160, 128, 112)))
+TIMED_SHAPES = {(b, w) for b, wins in KERNEL_SHAPES[:2] + KERNEL_SHAPES[3:4]
                 for w in wins}
 # body depth whose projection fills each window (bench placement); the
 # full-frame window 256 holds a body at the nearest bench depth

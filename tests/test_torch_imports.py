@@ -28,8 +28,10 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)
     import mhmocap_tpu_torch
-    from mhmocap_tpu_torch import (config, convert, eval_mupots, io,
-                                   predict_internet, predict_mupots,
+    from mhmocap_tpu_torch import (bench_e2e, config, convert,
+                                   decompose_jitter, diff_final_results,
+                                   eval_mupots, io, predict_internet,
+                                   predict_mupots, predict_mupots_sweep,
                                    profile_cycle, raster_ablation, sweep,
                                    visualization, workload)
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
@@ -41,6 +43,7 @@ SCRIPT = textwrap.dedent("""
     from mhmocap_tpu_torch.models import loader, smpl, synthetic
     from mhmocap_tpu_torch.ops import (cameras, image, morphology, one_euro,
                                        raster_cuda, rasterizer)
+    from mhmocap_tpu_torch.parallel import ranks, spmd
     from mhmocap_tpu_torch.viz import export, viewer3d
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -83,11 +86,29 @@ SCRIPT = textwrap.dedent("""
     data = E.prepare_seq_data(seq, cfg)
     params = pred._params
     aux = E.init_aux(cfg, model.num_vertices, params.betas.detach())
-    params, st, aux, loss, parts = E.stage1_cycle_fused(
-        params, E.rmsprop_init(params), aux, 0, pred.model, data,
+    aux0 = aux
+    params1, st, aux, loss, parts = E.stage1_cycle_fused(
+        params, E.rmsprop_init(params), aux0, 0, pred.model, data,
         E.default_coefs(), cfg)
     assert aux.have_scene and aux.have_filters
     assert torch.isfinite(loss) and torch.isfinite(parts).all()
+
+    # the same cycle sharded over a world of one rank (gloo, file
+    # rendezvous): the halo comes from the rank itself and is masked
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = spmd.init_time_mesh("gloo", "cpu", "file://" + tmp + "/rdzv",
+                                   0, 1)
+        try:
+            _, _, saux, sloss, sparts = spmd.spmd_stage1_cycle_fused(
+                spmd.shard_params(params, mesh),
+                spmd.shard_opt_state(E.rmsprop_init(params), mesh),
+                spmd.shard_aux(aux0, mesh), 0, pred.model,
+                spmd.shard_data(data, mesh), E.default_coefs(), cfg, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    assert saux.have_scene and saux.have_filters
+    assert torch.allclose(sloss, loss, rtol=1e-5), (sloss, loss)
+    assert torch.allclose(sparts, parts, rtol=1e-5, atol=1e-8)
 
     # the entry points on a port-written tree: JPEG/PNG/YAML without
     # PIL, OpenCV or PyYAML, with the robust profile and the
@@ -146,7 +167,7 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax_and_host_deps():
     """Import every port module and run SMPL, the raster, the FHSOG build
     and carve, a tiny Predictor.run, a cycle with the scene and filter
-    refreshes, and predict_mupots (with gap_aware_temporal,
+    refreshes (and the same cycle sharded over one gloo rank), and predict_mupots (with gap_aware_temporal,
     gap_interpolate and save_visualizations) + eval_mupots +
     visualization (both modes, with captures) on a port-written tree
     with --device cpu, in a fresh interpreter where jax, yaml, PIL, cv2,

@@ -37,7 +37,7 @@ def make_args(**kw):
 @pytest.mark.parametrize("user_bucket", [0, 64])
 def test_tune_time_layout_matches(user_bucket):
     for T in (5, 8, 31, 32, 100, 201, 2300):
-        assert TPr.tune_time_layout(T, user_bucket, 10) == \
+        assert TPr.tune_time_layout(T, 1, user_bucket, 10) == \
             JPr.tune_time_layout(T, 1, user_bucket, 10), T
 
 
