@@ -15,7 +15,9 @@ Phases (any failure raises, so the process exits non-zero):
      phase 7's, 12 at the full-frame 256, 34 and 17 at 160/128/112;
      errors printed beside their bounds), the forward's
      log1pf shortcut checked, two forward and two backward launches
-     bit-identical, then, at the shapes of phases 4, 6 and 9
+     bit-identical, one forward + backward at B=29, window 160 captured
+     in a CUDA graph whose replay must be bit-identical to the eager
+     launches, then, at the shapes of phases 4, 6 and 9
      (workload.TIMED_SHAPES), timed against the plain version on
      the same inputs; prints the active (cell, chunk) pairs (the JAX
      package's cell-major schedule, held equal to the backward's
@@ -25,8 +27,10 @@ Phases (any failure raises, so the process exits non-zero):
      share of it;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
-     so that the scene rebuild (cycle 30) and the One-Euro refresh
-     (cycle 50) both run; checks the kernel launch counters, the losses,
+     each one CUDA graph replay (phases 5-9 run the Predictor on the
+     graphs too), so that the scene rebuild (cycle 30) and the One-Euro
+     refresh (cycle 50) both run; checks the kernel launch counters
+     (through the replays), the losses,
      the refreshes and the pickles, and prints the per-cycle and
      init-solve seconds; fails on a raster call shape phase 3 did not
      check;
@@ -39,10 +43,12 @@ Phases (any failure raises, so the process exits non-zero):
      `predict_mupots.main --device cuda` on each tree and
      `eval_mupots.main` over both; prints the raster launches per tree,
      the ingestion seconds (decode / post-process / assignment), the
-     init and per-cycle seconds and the FinalResults averages; checks
-     the pickles against the JAX package's schema, finite metrics, each
-     tree's pck_rel against its measured floor (ENTRY_MIN_PCK) and, as
-     phase 4, the raster call shapes against phase 3's;
+     init and per-cycle seconds, a replay's span on the card and the
+     host gap share (CUDA events around each replay), and the FinalResults
+     averages; checks the pickles against the JAX package's schema,
+     finite metrics, each tree's pck_rel against its measured floor
+     (ENTRY_MIN_PCK) and, as phase 4, the raster call shapes against
+     phase 3's;
   7. shipped config: writes one degraded tree (the sweep's combined
      degradation plan: crossing paths, a person leaving the frame, an
      ID switch, detection and ROMP dropout, so that stale frames exist;
@@ -51,8 +57,10 @@ Phases (any failure raises, so the process exits non-zero):
      resize_factor 0.125, gap_aware_temporal, id_swap_fix 0.5,
      post_process_depth, save_visualizations), then `eval_mupots.main`;
      prints the launches, the ingestion split, the per-cycle median
-     (CUDA events between cycles), the seconds of the two exports and
-     the FinalResults averages; checks stale frames, a live
+     (CUDA events between cycles), a replay's span and the host gap
+     share,
+     the seconds of the two exports and the FinalResults averages;
+     checks stale frames, a live
      reg_gap_accel, both kernels launched, the visualization files and
      pickle, finite metrics and the raster call shapes;
   8. checkpoint and trace: a tiny sequence runs 4 cycles unbroken (with
@@ -83,7 +91,23 @@ Phases (any failure raises, so the process exits non-zero):
      backward launches a rank a cycle, the raster call shapes against
      phase 3's; prints the seconds a cycle of both (a correctness run:
      two ranks on one card measure no speed-up) and the bytes each rank
-     holds.
+     holds. The sharded cycles are eager (gloo's collectives cannot be
+     captured), and so is the single process they are held to;
+ 11. graphs: bench-ts1 at full width from one init: the init solve's
+     graph (one captured Adam step, replayed for the other 99) against
+     its eager loop, then cycles 0-52 (every variant: no
+     refresh, the scene rebuild from 30, both refreshes at 50, the
+     rebuild with filters from 51) eagerly (`stage1_cycle_eager`) and
+     through a `CycleGraph`: every cycle's loss and parts, the final
+     params and RMSprop state bit-identical, 21 forward and 21 backward
+     launches a cycle on both paths, counted by the kernels (a
+     variant's first cycle is its eager warm-up, the rest replays);
+     prints each variant's warm-up and capture
+     seconds, the graph pool's bytes, both runs' peak memory, the
+     seconds a cycle of both paths over [30, 52) and at cycle 50 (a
+     second replay of its graph), the device-busy share of a replayed
+     cycle (torch.profiler, and CUDA events against the host clock), and
+     `bench_multicycle`'s loop / graph / K=5 / K=15 cadence.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -262,6 +286,9 @@ def phase_kernels():
                                                                    1e-30)
         res["dplanes_rel_norm"] = float(torch.linalg.norm(gk - gp)
                                         / torch.linalg.norm(gp))
+        if (B, win) == GRAPH_SHAPE:
+            _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear,
+                                (zk, lk, ak), gk)
         errs["fwd"] = max(errs["fwd"], res["zbuf_abs"], res["sil_abs"])
         errs["bwd"] = max(errs["bwd"], float((gk - gp).abs().max()))
         covered = ck.reshape(B, -1).sum(-1)
@@ -340,6 +367,43 @@ def phase_kernels():
     return errs, timing
 
 
+# phase 3's CUDA graph check: the raster call shape of bench-ts1's
+# largest window
+GRAPH_SHAPE = (29, 160)
+
+
+def _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear, fwd, bwd):
+    """One forward and one backward launch captured in a CUDA graph (the
+    kernels launch on the current stream, the capture stream inside the
+    capture); one replay must equal the eager launches bit for bit, and
+    the kernels must count one launch each in it."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    from mhmocap_tpu_torch.ops import raster_cuda as RC
+    out = {}
+
+    def body():
+        out["fwd"] = RC.raster_fwd_cuda(tab, agg, win, inv_blur, znear)
+        out["bwd"] = RC.raster_bwd_cuda(tab, agg, dz, dlk, fwd[2], win,
+                                        inv_blur)
+
+    graph, _ = capture_graph(body, tab.device)
+    for t in (*out["fwd"], out["bwd"]):
+        t.fill_(-7)
+    RC.RasterPlanes.launches.reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    launches = dict(RC.RasterPlanes.launches)
+    same = (all(torch.equal(a, b) for a, b in zip(out["fwd"], fwd))
+            and torch.equal(out["bwd"], bwd))
+    print(f"[3 kernels] B={tab.shape[0]} win {win}: forward + backward "
+          f"captured in a CUDA graph ({launches} launches counted in a "
+          f"replay), replay "
+          f"bit-identical to the eager launches: {same}", flush=True)
+    if not same or launches != {"fwd": 1, "bwd": 1}:
+        raise AssertionError("the raster kernels' graph replay differs from "
+                             "their eager launches")
+
+
 INIT_KEYS = {"scale_factor", "poses_T", "poses_smpl", "betas_smpl",
              "valid_smpl", "min_z", "max_z", "scene_depth", "scene_img",
              "scene_mask", "pose2d"}
@@ -377,8 +441,7 @@ def phase_main_path(out_dir):
           f"{cfg.person_windows}, V={model.num_vertices} "
           f"F={model.num_faces}", flush=True)
     _check_raster_calls(cfg, "4 main")
-    for k in RasterPlanes.launches:
-        RasterPlanes.launches[k] = 0
+    RasterPlanes.launches.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out = pred.run(verbose=True)
@@ -578,13 +641,13 @@ def phase_entry_points(tmp):
                            bench_cycles=list(range(30, ENTRY_CYCLES + 1))))
     launches = {}
     for ts, _ in ENTRY_TREES:
-        for k in RasterPlanes.launches:
-            RasterPlanes.launches[k] = 0
+        RasterPlanes.launches.reset()
         t0 = time.time()
-        summary = predict_mupots.main(
-            ["--configs_yml", cfg, "--ts_id", str(ts), "--output_path", out,
-             "--device", "cuda"])
-        torch.cuda.synchronize()
+        with CycleClock() as clock:
+            summary = predict_mupots.main(
+                ["--configs_yml", cfg, "--ts_id", str(ts), "--output_path",
+                 out, "--device", "cuda"])
+            torch.cuda.synchronize()
         wall = time.time() - t0
         launches[ts] = dict(RasterPlanes.launches)
         _check_raster_calls(summary["engine_config"], f"6 entry TS{ts}")
@@ -597,8 +660,8 @@ def phase_entry_points(tmp):
               f"{ing['assignment']:.3f}); init solve "
               f"{summary['init_seconds']:.3f}s; per-cycle median "
               f"{np.median(cyc):.4f}s over cycles [30, {ENTRY_CYCLES}) "
-              f"(min {cyc.min():.4f}, max {cyc.max():.4f}); predict_mupots "
-              f"{wall:.1f}s", flush=True)
+              f"(min {cyc.min():.4f}, max {cyc.max():.4f}), "
+              f"{clock.report(30)}; predict_mupots {wall:.1f}s", flush=True)
         if min(launches[ts].values()) <= 0:
             raise AssertionError(f"TS{ts}: a raster kernel never launched: "
                                  f"{launches[ts]}")
@@ -637,33 +700,52 @@ VIS_KEYS = {"images", "depths", "backmasks", "cam_smpl", "cam", "verts",
 
 
 class CycleClock:
-    """Records a CUDA event after each stage-1 cycle while active, with
-    no host synchronization, so that the per-cycle times of a run whose
-    config sets no bench_cycles can be read afterwards (the card's
-    timeline between consecutive cycles' last work)."""
+    """Records CUDA events before and after each stage-1 cycle (a
+    `CycleGraph` replay) while active, with no host synchronization, so
+    that the per-cycle times of a run can be read afterwards: the card's
+    timeline between consecutive cycles' ends, and the span of each
+    replay on the card. The rest of a cycle's timeline is the host's gap
+    between replays; the span is not busy time (the gaps between a
+    graph's kernels count in it), so 1 - span / cycle is no idle
+    share."""
 
     def __init__(self):
-        from mhmocap_tpu_torch.engine import optimizer as E
-        self.E, self.cycle, self.events = E, E.stage1_cycle_fused, []
+        from mhmocap_tpu_torch.engine.cycle_graph import CycleGraph
+        self.cls, self.replay, self.events = CycleGraph, CycleGraph.replay, []
 
     def __enter__(self):
-        def timed(*args, **kwargs):
-            out = self.cycle(*args, **kwargs)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.events.append(ev)
+        def timed(graph, cycle):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = self.replay(graph, cycle)
+            b.record()
+            self.events.append((a, b))
             return out
-        self.E.stage1_cycle_fused = timed
+        self.cls.replay = timed
         return self
 
     def __exit__(self, *exc):
-        self.E.stage1_cycle_fused = self.cycle
+        self.cls.replay = self.replay
 
     def seconds(self) -> np.ndarray:
         """Seconds of cycles 1.. (cycle 0 has no event before it)."""
         torch.cuda.synchronize()
-        return np.asarray([a.elapsed_time(b) / 1e3 for a, b in
+        return np.asarray([a[1].elapsed_time(b[1]) / 1e3 for a, b in
                            zip(self.events, self.events[1:])])
+
+    def spans(self) -> np.ndarray:
+        """Seconds of each replay on the card, cycles 0.. (a variant's
+        first cycle includes its warm-up and capture)."""
+        torch.cuda.synchronize()
+        return np.asarray([a.elapsed_time(b) / 1e3 for a, b in self.events])
+
+    def report(self, first: int) -> str:
+        """The medians from cycle `first` on: cycle, replay span, and the
+        host gap share 1 - span / cycle."""
+        cyc, span = np.median(self.seconds()[first - 1:]), np.median(
+            self.spans()[first:])
+        return (f"replay span median {span:.4f}s of a {cyc:.4f}s cycle "
+                f"(host gap share {1 - span / cyc:.3f})")
 
 
 def phase_shipped_config(tmp):
@@ -684,8 +766,7 @@ def phase_shipped_config(tmp):
     print(f"[7 robust] wrote TS{ROBUST_TS} ({ROBUST_PEOPLE} people, "
           f"{ROBUST_FRAMES} frames, {ROBUST_SIDE}x{ROBUST_SIDE}, degraded) "
           f"in {time.time() - t0:.1f}s", flush=True)
-    for k in RasterPlanes.launches:
-        RasterPlanes.launches[k] = 0
+    RasterPlanes.launches.reset()
     t0 = time.time()
     with CycleClock() as clock:
         summary = predict_mupots.main(
@@ -708,7 +789,8 @@ def phase_shipped_config(tmp):
           f"{ing['assignment']:.3f}); init solve "
           f"{summary['init_seconds']:.3f}s; per-cycle median "
           f"{np.median(cyc):.4f}s over cycles [30, {ROBUST_CYCLES}) (min "
-          f"{cyc.min():.4f}, max {cyc.max():.4f}); exports: init "
+          f"{cyc.min():.4f}, max {cyc.max():.4f}), {clock.report(30)}; "
+          f"exports: init "
           f"{exp['init']:.3f}s, stage-1 {exp['stage1']:.3f}s; "
           f"predict_mupots {wall:.1f}s", flush=True)
     if not cfg.gap_aware_temporal or cfg.image_size != (256, 256):
@@ -943,8 +1025,7 @@ def phase_visualization_fhsog(tmp, robust_dir):
                                            num_depth_bins=FHSOG_BINS)
 
     args = inputs(dev)
-    for k in RasterPlanes.launches:
-        RasterPlanes.launches[k] = 0
+    RasterPlanes.launches.reset()
     torch.cuda.synchronize()
     t0 = time.time()
     with RasterClock() as clock:
@@ -1104,11 +1185,10 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
     del aux0, grads
     for c in cycles:
         sync()
-        for k in RasterPlanes.launches:
-            RasterPlanes.launches[k] = 0
+        RasterPlanes.launches.reset()
         t0 = time.time()
         if mesh is None:
-            params, state, aux, loss, _ = E.stage1_cycle_fused(
+            params, state, aux, loss, _ = E.stage1_cycle_eager(
                 params, state, aux, c, model, data, coefs, cfg)
         else:
             params, state, aux, loss, _ = S.spmd_stage1_cycle_fused(
@@ -1136,7 +1216,7 @@ def _shard_rank(mesh, payload):
 
 def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
     """Phase 10: `spmd_stage1_cycle_fused` on spec["ranks"] gloo ranks
-    against `stage1_cycle_fused` in this process, on the same layout,
+    against `stage1_cycle_eager` in this process, on the same layout,
     from the same init params."""
     from mhmocap_tpu_torch.engine import optimizer as E
     from mhmocap_tpu_torch.parallel.ranks import run_ranks
@@ -1219,6 +1299,202 @@ def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
             for k in ("fwd", "bwd")}
 
 
+# Phase 11: bench-ts1 eagerly and through the graphs from one init, over
+# cycles 0-52, which run every variant: no refresh (0-29), the scene
+# rebuild (30-49), both refreshes (50), the rebuild with filters (51-52).
+GRAPH_CYCLES = 53
+GRAPH_TIMED = (30, 52)
+GRAPH_BENCH = {"Ks": (5, 15), "meas": 15, "reps": 1}
+
+
+def _run_cycles(step, n):
+    """(seconds, launches) of cycles 0..n-1, each run by step(c) between
+    synchronizations with the raster launches counted from 0."""
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    secs, launches = [], []
+    for c in range(n):
+        torch.cuda.synchronize()
+        RasterPlanes.launches.reset()
+        t0 = time.perf_counter()
+        step(c)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(dict(RasterPlanes.launches))
+    return np.asarray(secs), launches
+
+
+def _span(secs):
+    a, b = GRAPH_TIMED
+    w = secs[a:b]
+    return (f"median {np.median(w):.4f}s (min {w.min():.4f}, max "
+            f"{w.max():.4f}) over [{a}, {b}), cycle 50 {secs[50]:.4f}s")
+
+
+def phase_graphs():
+    """Phase 11: the fused cycle and the init solve as CUDA graphs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mhmocap_tpu_torch import bench_multicycle
+    from mhmocap_tpu_torch.engine import cycle_graph as CG
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.workload import (WINDOW, bench_args,
+                                            make_ts1_like_seq)
+    dev = torch.device("cuda")
+    seq, model = make_ts1_like_seq()
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = Predictor(seq, model, tmp, bench_args(1, None, WINDOW),
+                         device=dev)
+    cfg, m, coefs = pred.cfg, pred.model, pred.coefs
+    per_cycle = len(cfg.window_groups) * cfg.num_chunks
+    fails = []
+
+    # the init solve: one captured Adam step, replayed for the other 99,
+    # against the eager loop
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in (seq.pose2d, seq.poses_smpl, seq.betas_smpl,
+                      seq.cam["K"])]
+    args.append(torch.zeros((1, cfg.num_people, 1, 1), device=dev))
+    kw = dict(dist_coef=E._dist_coef(cfg, dev),
+              pose_weights=E._j17_weights(cfg, dev))
+    secs = {}
+    for name, fn in (("eager", E.init_global_poses),
+                     ("graph", CG.init_global_poses_fused)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        secs[name] = [x.clone() for x in fn(m, *args, **kw)]
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for a, b in zip(secs["eager"][:2],
+                                                 secs["graph"][:2]))
+    print(f"[11 graphs] init solve (100 Adam steps, T={cfg.num_frames}, "
+          f"N={cfg.num_people}): eager loop {secs['eager'][2]:.3f}s, graph "
+          f"(step 0 eager as the warm-up, its capture, 99 replays) "
+          f"{secs['graph'][2]:.3f}s; "
+          f"poses_T and history bit-identical {same}", flush=True)
+    if not same:
+        fails.append("init solve graph differs from the eager loop")
+
+    params, _, opt_scale = E.init_params(m, seq.pose2d, seq.poses_smpl,
+                                         seq.betas_smpl, seq.cam["K"], cfg)
+    data = E.prepare_seq_data(seq, cfg, dev)
+    aux0 = E.init_aux(cfg, m.num_vertices, torch.as_tensor(
+        np.mean(seq.betas_smpl, axis=0, keepdims=True), device=dev))
+
+    def eager_run():
+        state = {"s": (params, E.rmsprop_init(params), aux0)}
+        losses, parts = [], []
+
+        def step(c):
+            p, st, aux, loss, part = E.stage1_cycle_eager(
+                *state["s"], c, m, data, coefs, cfg, opt_scale)
+            state["s"] = (p, st, aux)
+            losses.append(loss)
+            parts.append(part)
+
+        torch.cuda.reset_peak_memory_stats()
+        secs, launches = _run_cycles(step, GRAPH_CYCLES)
+        p, st, _ = state["s"]
+        return dict(secs=secs, launches=launches, losses=torch.stack(losses),
+                    parts=torch.stack(parts), state=(p, st.nu, st.trace),
+                    count=int(st.count),
+                    peak=torch.cuda.max_memory_allocated())
+
+    eager = eager_run()
+    graph = CG.CycleGraph(params, E.rmsprop_init(params), aux0, m, data,
+                          coefs, cfg, opt_scale, num_cycles=GRAPH_CYCLES)
+    torch.cuda.reset_peak_memory_stats()
+    variants = []
+    g_secs, g_launches = _run_cycles(
+        lambda c: variants.append(graph.replay(c)), GRAPH_CYCLES)
+    g_peak = torch.cuda.max_memory_allocated()
+    st = graph.state
+    diff = [c for c in range(GRAPH_CYCLES)
+            if not (torch.equal(st.losses[c], eager["losses"][c])
+                    and torch.equal(st.parts[c], eager["parts"][c]))]
+    state_same = all(torch.equal(a, b) for a, b in zip(
+        CG.tree_leaves((st.params, st.nu, st.trace)),
+        CG.tree_leaves(eager["state"])))
+    print(f"[11 graphs] cycles 0-{GRAPH_CYCLES - 1}, {len(graph.graphs)} "
+          f"variants {[tuple(int(x) for x in v) for v in graph.graphs]} "
+          f"(do_scene, do_filt, have_scene, have_filters): graph vs eager "
+          f"cycles whose loss or parts differ {diff}; final params and "
+          f"RMSprop state bit-identical {state_same}, step count "
+          f"{int(st.count)} / {eager['count']}", flush=True)
+    if diff or not state_same or int(st.count) != eager["count"]:
+        again = eager_run()
+        self_same = (torch.equal(again["losses"], eager["losses"])
+                     and all(torch.equal(a, b) for a, b in zip(
+                         CG.tree_leaves(again["state"]),
+                         CG.tree_leaves(eager["state"]))))
+        print(f"[11 graphs] eager rerun bit-identical to the first eager "
+              f"run: {self_same}; loss rel diff graph vs eager per cycle "
+              f"{((st.losses - eager['losses']).abs() / eager['losses'].abs()).tolist()}",
+              flush=True)
+        fails.append("graph cycles differ from the eager cycles")
+
+    want = {"fwd": per_cycle, "bwd": per_cycle}
+    bad = [(c, n_e, n_g) for c, (n_e, n_g) in enumerate(
+        zip(eager["launches"], g_launches)) if n_e != want or n_g != want]
+    print(f"[11 graphs] raster launches a cycle, counted by the kernels: "
+          f"eager {eager['launches'][-1]}, graph {g_launches[-1]} (want "
+          f"{want}); cycles off {bad}", flush=True)
+    if bad:
+        fails.append(f"raster launches {bad}")
+    for v, (warm, cap) in graph.capture_seconds.items():
+        print(f"[11 graphs] variant {tuple(int(x) for x in v)}: warm-up "
+              f"{warm:.3f}s, capture and instantiation {cap:.3f}s",
+              flush=True)
+    pool = graph.pool_bytes()
+    print(f"[11 graphs] graph pool "
+          f"{'not named by the allocator' if pool is None else f'{pool / 2**20:.1f} MiB'}"
+          f"; peak memory eager {eager['peak'] / 2**30:.2f} GiB, graphs "
+          f"{g_peak / 2**30:.2f} GiB", flush=True)
+    print(f"[11 graphs] seconds a cycle: eager {_span(eager['secs'])}; "
+          f"graphs {_span(g_secs)} (cycles 30, 50 and 51 are their "
+          f"variants' eager warm-ups, each followed by its capture)",
+          flush=True)
+
+    # steady replays after the comparison: cycle 50's graph (both
+    # refreshes) again, then one steady cycle under the profiler and
+    # between CUDA events
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.replay(50)
+    torch.cuda.synchronize()
+    r50 = time.perf_counter() - t0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        graph.replay(51)
+        b.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [k for k in prof.key_averages()
+            if k.device_type == DeviceType.CUDA]
+    busy = sum(k.device_time_total for k in rows) / 1e6
+    span = a.elapsed_time(b) / 1e3
+    print(f"[11 graphs] replay of cycle 50's graph again: {r50:.4f}s; a "
+          f"steady replay (cycle 51's graph): host wall {wall:.4f}s, CUDA "
+          f"events around it {span:.4f}s ({span / wall:.3f} of the wall); "
+          f"torch.profiler sees {len(rows)} device rows, "
+          f"{sum(k.count for k in rows)} launches, busy {busy:.4f}s = "
+          f"{busy / wall:.3f} of the profiled wall (idle "
+          f"{1 - busy / wall:.3f})", flush=True)
+
+    med = bench_multicycle.run(
+        seq, model, device=dev,
+        report=lambda line: print(f"[11 graphs] bench_multicycle: {line}",
+                                  flush=True), **GRAPH_BENCH)
+    print(f"[11 graphs] nvidia-smi: {smi_line()}", flush=True)
+    if fails:
+        raise AssertionError("graphs: " + "; ".join(fails))
+    return {k: sum(n[k] for n in g_launches) for k in want}, med
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
@@ -1233,9 +1509,10 @@ def main():
         fhsog_launches = phase_visualization_fhsog(
             tmp, os.path.join(tmp, "robust", "out", f"TS{ROBUST_TS}"))
     shard_launches = phase_sharded()
+    graph_launches, _ = phase_graphs()
     # the launches of every main-path run, each counted from 0
     launches = {k: main_launches[k] + robust_launches[k] + fhsog_launches[k]
-                + shard_launches[k]
+                + shard_launches[k] + graph_launches[k]
                 + sum(v[k] for v in entry_launches.values())
                 for k in main_launches}
     # times and bounds at B=29, window 160; no single PyTorch call

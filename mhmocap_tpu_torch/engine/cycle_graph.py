@@ -1,0 +1,352 @@
+"""One device program per stage-1 cycle: CUDA graphs over static state.
+
+Counterpart of the JAX package's execution contract
+(`mhmocap_tpu/engine/optimizer.py`): `stage1_cycle_fused` is one jitted
+program per production cycle, its params, optimizer state and aux
+donated and resident on the device, with the aux refreshes under
+`lax.cond` inside it; `stage1_cycles_fused` runs K cycles as one
+program; the jitted `init_global_poses` runs its Adam steps as one
+`lax.scan`. In PyTorch a jitted, donated, resident program is a CUDA
+graph captured over static buffers:
+
+  * `StaticState`: params, RMSprop nu/trace and its step count, the aux
+    (scene point cloud, bf16 filtered targets, betas_ref) and a device
+    log of each cycle's loss and parts, in persistent tensors that a
+    cycle updates in place (the counterpart of donation);
+  * `cycle_body`: one production cycle on a StaticState, with the
+    arithmetic of `optimizer.stage1_cycle_eager` (the same functions,
+    their results copied into the buffers);
+  * `CycleGraph`: the fit's static state and one graph per cycle
+    `Variant`, captured at the variant's first use into one shared
+    memory pool; `replay(cycle)` runs a cycle with no host
+    synchronization. The refresh cadence and the loss's branches on the
+    scene and the filtered targets are host decisions, so they key the
+    graphs, as the `lax.cond`s key the JAX program's branches;
+  * `replay_cycles`: `optimizer.stage1_cycle{,s}_fused` on CUDA tensors;
+  * `init_global_poses_fused`: `optimizer.init_global_poses` as one
+    captured Adam step, replayed for every step with no host
+    interaction.
+
+On the CPU the same bodies run eagerly: the caller chose the CPU. On
+CUDA a capture that fails raises; nothing runs eagerly in its place.
+The sharded fit (`parallel/spmd.py`) stays eager: its gloo collectives
+cannot be captured.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from . import optimizer as E
+from .scene import ScenePointCloud
+
+
+class Variant(NamedTuple):
+    """What a cycle's program does, from the host's view of the cycle:
+    the refreshes it runs and whether the loss has a scene and filtered
+    targets after them."""
+
+    do_scene: bool
+    do_filt: bool
+    have_scene: bool
+    have_filters: bool
+
+
+def cycle_variant(cycle: int, have_scene: bool, have_filters: bool,
+                  cfg: E.EngineConfig) -> Variant:
+    do_scene, do_filt = E.refresh_flags(cycle, cfg)
+    return Variant(do_scene, do_filt, have_scene or do_scene,
+                   have_filters or do_filt)
+
+
+def tree_map(fn, tree):
+    """fn over the tensors of nested (named) tuples; other leaves kept."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def tree_leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in tree_leaves(x)]
+    return []
+
+
+def _copy_into(dst, src):
+    with torch.no_grad():
+        for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+            d.copy_(s)
+
+
+class StaticState(NamedTuple):
+    """The fit's state in persistent tensors, updated in place."""
+
+    params: E.StageParams
+    nu: E.StageParams
+    trace: E.StageParams
+    count: torch.Tensor             # () int64: RMSprop steps taken
+    scene: ScenePointCloud
+    verts_filt_diff: torch.Tensor   # (Tp, N, V, 3) bf16
+    betas_ref: torch.Tensor         # (1, N, 10)
+    losses: torch.Tensor            # (L,): cycle c's loss at row c
+    parts: torch.Tensor             # (L, len(LOG_KEYS))
+    cycle: torch.Tensor             # () int64: the next cycle's row
+    steps: int                      # the steps count's schedule covers
+
+    @classmethod
+    def create(cls, params: E.StageParams, opt_state: E.RMSpropState,
+               aux: E.StageAux, log_len: int) -> "StaticState":
+        dev = params.poses_T.device
+        own = lambda t: t.detach().clone()                    # noqa: E731
+        count = int(opt_state.count)
+        return cls(
+            params=tree_map(own, params), nu=tree_map(own, opt_state.nu),
+            trace=tree_map(own, opt_state.trace),
+            count=torch.full((), count, dtype=torch.int64, device=dev),
+            scene=tree_map(own, aux.scene),
+            verts_filt_diff=own(aux.verts_filt_diff),
+            betas_ref=own(aux.betas_ref),
+            losses=torch.zeros((log_len,), device=dev),
+            parts=torch.zeros((log_len, len(E.LOG_KEYS)), device=dev),
+            cycle=torch.zeros((), dtype=torch.int64, device=dev),
+            steps=E.schedule_len(count + log_len))
+
+    def opt_state(self) -> E.RMSpropState:
+        return E.RMSpropState(nu=self.nu, trace=self.trace, count=self.count)
+
+
+def cycle_body(st: StaticState, v: Variant, model, data: E.SeqData, coefs,
+               cfg: E.EngineConfig, optimize_scale: bool):
+    """One production cycle of variant `v` on `st`, in place: the
+    refreshes, the full-batch gradient and one RMSprop update, the loss
+    and parts written to the log row `st.cycle`. After its first call
+    for a (variant, device) it builds no tensor from host data and does
+    not synchronize, so it can be captured."""
+    if v.do_scene:
+        _copy_into(st.scene, E.update_scene(st.params, data, cfg))
+    if v.do_filt:
+        _copy_into(st.verts_filt_diff,
+                   E.update_filtered_targets(st.params, model, cfg))
+    aux = E.StageAux(betas_ref=st.betas_ref, scene=st.scene,
+                     have_scene=v.have_scene,
+                     verts_filt_diff=st.verts_filt_diff,
+                     have_filters=v.have_filters)
+    params, opt_state, loss, parts = E.grad_step(
+        st.params, st.opt_state(), model, data, aux, coefs, cfg,
+        optimize_scale, steps=st.steps)
+    _copy_into((st.params, st.nu, st.trace, st.count),
+               (params, opt_state.nu, opt_state.trace, opt_state.count))
+    with torch.no_grad():
+        row = st.cycle.reshape(1)
+        st.losses.index_copy_(0, row, loss.reshape(1))
+        st.parts.index_copy_(0, row, parts[None])
+        st.cycle.add_(1)
+
+
+def capture_graph(body: Callable[[], None], device, pool=None):
+    """(graph, seconds): `body` run once eagerly on a side stream, as
+    PyTorch's whole-network capture requires of a warm-up (its work is
+    real: callers count it as the first run), then captured in a CUDA
+    graph that shares memory pool `pool`. The capture runs nothing.
+    `seconds` = (warm-up, capture and instantiation), host clock."""
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    return graph, (t1 - t0, time.perf_counter() - t1)
+
+
+class CycleGraph:
+    """The stage-1 fit as CUDA graphs over a StaticState.
+
+    Built from (params, opt_state, aux) before the first cycle (or from
+    a checkpoint's), for cycles [0, num_cycles). `replay(cycle)` runs
+    one cycle: on CUDA one replay of its variant's graph; a variant's
+    first cycle runs eagerly on the static state as the capture's
+    warm-up, and its graph is captured after it, into one memory pool
+    shared by all variants. On the CPU it runs `cycle_body` eagerly.
+    `capture_seconds` holds each variant's (warm-up, capture)
+    seconds."""
+
+    def __init__(self, params: E.StageParams, opt_state: E.RMSpropState,
+                 aux: E.StageAux, model, data: E.SeqData, coefs,
+                 cfg: E.EngineConfig, optimize_scale: bool = True,
+                 num_cycles: int = 1):
+        self.model, self.data, self.coefs, self.cfg = model, data, coefs, cfg
+        self.optimize_scale = optimize_scale
+        self.num_cycles = num_cycles
+        self.state = StaticState.create(params, opt_state, aux, num_cycles)
+        self.device = self.state.count.device
+        self.have_scene = bool(aux.have_scene)
+        self.have_filters = bool(aux.have_filters)
+        self._count = int(opt_state.count)
+        self._next_row = 0
+        self.graphs: Dict[Variant, torch.cuda.CUDAGraph] = {}
+        self.capture_seconds: Dict[Variant, tuple] = {}
+        self._pool = None
+
+    def aux(self) -> E.StageAux:
+        st = self.state
+        return E.StageAux(betas_ref=st.betas_ref, scene=st.scene,
+                          have_scene=self.have_scene,
+                          verts_filt_diff=st.verts_filt_diff,
+                          have_filters=self.have_filters)
+
+    def holds(self, params, opt_state, aux) -> bool:
+        """Whether (params, opt_state, aux) are this state's buffers."""
+        st = self.state
+        return (all(a is b for a, b in zip(tree_leaves(
+            (params, opt_state.nu, opt_state.trace, aux.scene)), tree_leaves(
+                (st.params, st.nu, st.trace, st.scene))))
+            and opt_state.count is st.count
+            and aux.verts_filt_diff is st.verts_filt_diff
+            and aux.betas_ref is st.betas_ref)
+
+    def load(self, params, opt_state, aux):
+        """Copy (params, opt_state, aux) into the static buffers."""
+        st = self.state
+        _copy_into((st.params, st.nu, st.trace, st.scene,
+                    st.verts_filt_diff, st.betas_ref),
+                   (params, opt_state.nu, opt_state.trace, aux.scene,
+                    aux.verts_filt_diff, aux.betas_ref))
+        self._count = int(opt_state.count)
+        st.count.fill_(self._count)
+        self.have_scene = bool(aux.have_scene)
+        self.have_filters = bool(aux.have_filters)
+
+    def _cover(self, count: int):
+        """Longer schedule tables once step `count` is past the state's
+        (they then cover num_cycles more): the graphs captured with the
+        shorter ones are dropped, and captured again at their variants'
+        next cycles."""
+        if count >= self.state.steps:
+            self.state = self.state._replace(
+                steps=E.schedule_len(count + self.num_cycles))
+            self.graphs.clear()
+
+    def _body(self, v: Variant):
+        cycle_body(self.state, v, self.model, self.data, self.coefs,
+                   self.cfg, self.optimize_scale)
+
+    def replay(self, cycle: int) -> Variant:
+        """Run stage-1 cycle `cycle` (its loss lands in
+        `state.losses[cycle]`). Returns its variant."""
+        if not 0 <= cycle < self.num_cycles:
+            raise ValueError(f"cycle {cycle} is outside [0, "
+                             f"{self.num_cycles})")
+        self._cover(self._count)
+        v = cycle_variant(cycle, self.have_scene, self.have_filters,
+                          self.cfg)
+        if cycle != self._next_row:
+            self.state.cycle.fill_(cycle)
+        if self.device.type != "cuda":
+            self._body(v)
+        elif v in self.graphs:
+            self.graphs[v].replay()
+        else:
+            graph, self.capture_seconds[v] = capture_graph(
+                lambda: self._body(v), self.device, self._pool)
+            self._pool = graph.pool()
+            self.graphs[v] = graph
+        self._next_row = cycle + 1
+        self._count += 1
+        self.have_scene, self.have_filters = v.have_scene, v.have_filters
+        return v
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes of the segments the graphs' shared pool holds, from
+        the CUDA allocator's snapshot (None if it names no pool)."""
+        if self._pool is None:
+            return 0
+        segs = torch.cuda.memory_snapshot()
+        if not segs or "segment_pool_id" not in segs[0]:
+            return None
+        return sum(s["total_size"] for s in segs
+                   if tuple(s["segment_pool_id"]) == tuple(self._pool))
+
+
+# The graph of the functional API (`optimizer.stage1_cycle{,s}_fused` on
+# CUDA tensors), like jit's cache of a compiled program: one entry, for
+# the last (model, data, coefs, cfg, optimize_scale) it ran.
+_FUNCTIONAL: Dict[str, object] = {}
+FUNCTIONAL_LOG_LEN = 1024
+
+
+def replay_cycles(params, opt_state, aux, cycle0: int, model, data, coefs,
+                  cfg, optimize_scale: bool, n_cycles: int):
+    """`n_cycles` replays from cycle `cycle0` with no host
+    synchronization. The inputs are copied into the cached graph's
+    static state unless they are its buffers (what the last call
+    returned). Returns (params, opt_state, aux, losses (n_cycles,),
+    parts (n_cycles, len(LOG_KEYS))), the first three the static
+    buffers."""
+    key = (id(model), id(data), cfg, tuple(sorted(coefs.items())),
+           optimize_scale)
+    cg = _FUNCTIONAL.get("graph")
+    end = cycle0 + n_cycles
+    if cg is None or _FUNCTIONAL["key"] != key or end > cg.num_cycles:
+        cg = CycleGraph(params, opt_state, aux, model, data, coefs, cfg,
+                        optimize_scale, max(FUNCTIONAL_LOG_LEN, end))
+        _FUNCTIONAL.update(graph=cg, key=key)
+    elif not cg.holds(params, opt_state, aux):
+        cg.load(params, opt_state, aux)
+    for c in range(cycle0, end):
+        cg.replay(c)
+    st = cg.state
+    return (st.params, st.opt_state(), cg.aux(),
+            st.losses[cycle0:end].clone(), st.parts[cycle0:end].clone())
+
+
+def init_global_poses_fused(model, pose2d, poses_smpl, betas_smpl, cam_K,
+                            xscale, dist_coef=None, proj2d_coef: float = 1.0,
+                            reg_velocity_coef: float = 0.05,
+                            num_iter: int = 100, joints_thr: float = 0.15,
+                            pose_weights=None):
+    """`optimizer.init_global_poses` (same arguments) over static
+    buffers: one Adam step (`optimizer.init_step`, its index a device
+    count) updates poses_T, its moments and the loss history in place.
+    On CUDA tensors the first step runs eagerly as the warm-up, is
+    captured as one graph, and the graph is replayed for the other
+    steps with no host synchronization; on CPU tensors the step runs
+    eagerly `num_iter` times. (One graph of all the steps, replayed
+    once a video, takes longer to capture than the eager loop takes to
+    run.) Returns (poses_T (T, N, 1, 3), loss_2d history (num_iter,))."""
+    problem = E.InitProblem.create(
+        model, pose2d, poses_smpl, betas_smpl, cam_K, xscale, dist_coef,
+        proj2d_coef, reg_velocity_coef, joints_thr, pose_weights)
+    poses_T = problem.start()
+    mu, nu = torch.zeros_like(poses_T), torch.zeros_like(poses_T)
+    hist = torch.zeros((num_iter,), device=poses_T.device)
+    step = torch.zeros((), dtype=torch.int64, device=poses_T.device)
+
+    def body():
+        out = E.init_step(problem, poses_T, mu, nu, step, steps=num_iter)
+        _copy_into((poses_T, mu, nu), out[:3])
+        with torch.no_grad():
+            hist.index_copy_(0, step.reshape(1), out[3].reshape(1))
+            step.add_(1)
+
+    if poses_T.is_cuda and num_iter > 1:
+        graph, _ = capture_graph(body, poses_T.device)
+        for _ in range(num_iter - 1):
+            graph.replay()
+    else:
+        for _ in range(num_iter):
+            body()
+    return poses_T, hist

@@ -2,7 +2,10 @@
 
 Port of `mhmocap_tpu/engine/optimizer.py` (stage init + stage 1). The
 JAX package runs one cycle as one jitted program; here a cycle is
-eager PyTorch:
+written as eager PyTorch (`stage1_cycle_eager`), and on the card it runs
+as one replay of a CUDA graph captured over static state
+(`engine/cycle_graph.py`; `stage1_cycle{,s}_fused` dispatch there on
+CUDA tensors). In the cycle:
 
   * the full-batch gradient is accumulated chunk by chunk: each frame
     chunk's loss is built and `.backward()`-ed into the leaf parameters
@@ -11,12 +14,15 @@ eager PyTorch:
     added once per cycle;
   * the `lax.cond`s on the scene/filter refresh cadence and on the
     scene's existence become Python `if`s on host-side state computed
-    from the cycle index, so the cycle reads nothing back from the
-    device;
+    from the cycle index (`refresh_flags`), so the cycle reads nothing
+    back from the device, and the constants it reads are built once per
+    device, so it copies nothing to it after its first call;
   * Adam (init solve) and RMSprop (stage 1) are written out by hand to
     match optax's update order exactly (`adam_update`,
     `rmsprop_update`); `torch.optim.RMSprop` with `ExponentialLR`
-    differs once the learning rate decays.
+    differs once the learning rate decays. Their learning rates come
+    from tables uploaded once (`exp_decay_table`), indexed by a Python
+    or a device step count.
 
 `EngineConfig.gap_aware_temporal` (the robust profile) widens the chunk
 halo to 2 frames, drops the temporal pairs with a stale endpoint,
@@ -26,6 +32,7 @@ JAX package does; with the flag off the cycle is unchanged.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -170,11 +177,24 @@ def normalize_joint_weights(w) -> np.ndarray:
     return w * (len(w) / np.sum(w))
 
 
+# The constants a cycle or the init solve reads are built once per
+# (value, device) by the cached helpers below: after a body's first
+# call nothing is copied from the host, so the body can be captured in
+# a CUDA graph (engine/cycle_graph.py), and the eager path does not
+# synchronize on the copies either. The caches are never evicted: a
+# captured graph reads each tensor at its address for as long as it
+# lives.
+
 def _j17_weights(cfg: EngineConfig, device) -> Optional[torch.Tensor]:
     if cfg.pose17j_weights is None:
         return None
-    return torch.as_tensor(normalize_joint_weights(cfg.pose17j_weights),
-                           device=device)
+    return _on_device(tuple(normalize_joint_weights(cfg.pose17j_weights)),
+                      torch.float32, torch.device(device))
+
+
+@functools.cache
+def _on_device(values: Tuple, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -187,8 +207,8 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 def _dist_coef(cfg: EngineConfig, device) -> Optional[torch.Tensor]:
     if cfg.cam_dist_coef is None:
         return None
-    return torch.tensor(cfg.cam_dist_coef, dtype=torch.float32,
-                        device=device)
+    return _on_device(tuple(cfg.cam_dist_coef), torch.float32,
+                      torch.device(device))
 
 
 def default_coefs() -> Dict[str, float]:
@@ -279,15 +299,70 @@ def _exp_decay(init: float, rate: float, count: int) -> torch.Tensor:
                             torch.tensor(float(count), dtype=torch.float32))
 
 
-def adam_update(g, mu, nu, count: int, lr, b1: float, b2: float,
-                eps: float):
+def schedule_len(steps: int) -> int:
+    """The length of the schedule tables that cover steps [0, steps): a
+    power of two, at least 256, so that few tables are ever built."""
+    return max(256, 1 << (max(int(steps), 1) - 1).bit_length())
+
+
+@functools.cache
+def exp_decay_table(init: float, rate: float, length: int,
+                    device) -> torch.Tensor:
+    """`_exp_decay(init, rate, c)` for c in [0, length) on `device`: each
+    entry computed on the host exactly as `_exp_decay` computes it
+    (torch's vectorized pow rounds differently), uploaded once."""
+    return torch.stack([_exp_decay(init, rate, c)
+                        for c in range(length)]).to(device)
+
+
+def _decayed(init: float, rate: float, count, device,
+             steps: Optional[int] = None) -> torch.Tensor:
+    """exponential_decay(init, 1, rate) at `count` on `device`, read from
+    `exp_decay_table`: at a Python count its entry (a view of a table
+    long enough for it), at a device count (an int64 tensor) a (1,)
+    gather from the table that covers `steps` steps. Neither copies to
+    the device nor synchronizes after the table is built."""
+    if torch.is_tensor(count):
+        table = exp_decay_table(init, rate, schedule_len(steps),
+                                torch.device(device))
+        return table.index_select(0, count.reshape(1))
+    return exp_decay_table(init, rate, schedule_len(count + 1),
+                           torch.device(device))[count]
+
+
+@functools.cache
+def adam_bias_table(b: float, length: int, device) -> torch.Tensor:
+    """Adam's bias correction 1 - b**(c + 1) for c in [0, length), as
+    float32, in the form `_unbias` applies it on `device`: the divisor
+    on the CPU, its float32 reciprocal on CUDA."""
+    d = np.asarray([1 - b ** (c + 1) for c in range(length)], np.float32)
+    if torch.device(device).type == "cuda":
+        d = np.float32(1) / d
+    return torch.from_numpy(d).to(device)
+
+
+def _unbias(x, b: float, count, steps: Optional[int]) -> torch.Tensor:
+    """x / (1 - b**(count + 1)), the divisor rounded to float32, as torch
+    divides a tensor by a Python float: on CUDA x times the divisor's
+    float32 reciprocal, on the CPU a true division. At a device count
+    the divisor or reciprocal is gathered from `adam_bias_table`, so
+    both counts give the same bits."""
+    if not torch.is_tensor(count):
+        return x / float(np.float32(1 - b ** (count + 1)))
+    r = adam_bias_table(b, schedule_len(steps), x.device).index_select(
+        0, count.reshape(1))
+    return x * r if x.is_cuda else x / r
+
+
+def adam_update(g, mu, nu, count, lr, b1: float, b2: float, eps: float,
+                steps: Optional[int] = None):
     """optax.scale_by_adam (bias-corrected, eps outside the sqrt)
-    followed by -lr. Returns (update, mu, nu)."""
+    followed by -lr. `count` is a Python int or an int64 device count
+    whose tables cover `steps` steps. Returns (update, mu, nu)."""
     mu = (1 - b1) * g + b1 * mu
     nu = (1 - b2) * (g * g) + b2 * nu
-    k = count + 1
-    mu_hat = mu / float(np.float32(1 - b1 ** k))
-    nu_hat = nu / float(np.float32(1 - b2 ** k))
+    mu_hat = _unbias(mu, b1, count, steps)
+    nu_hat = _unbias(nu, b2, count, steps)
     upd = mu_hat / (torch.sqrt(nu_hat) + eps)
     return upd * (-lr).to(upd.device), mu, nu
 
@@ -301,11 +376,18 @@ def rmsprop_init(params: StageParams) -> RMSpropState:
 def rmsprop_update(grads: StageParams, state: RMSpropState,
                    params: StageParams, lr: float = 0.01,
                    decay: float = 0.5, momentum: float = 0.9,
-                   gamma: float = 0.99, eps: float = 1e-8):
+                   gamma: float = 0.99, eps: float = 1e-8,
+                   steps: Optional[int] = None):
     """optax.rmsprop(exponential_decay(lr, 1, gamma), decay, eps,
     momentum): scale_by_rms (g * rsqrt(nu + eps), nu starting at 0),
-    then -lr(count), then trace(momentum). Returns (params, state)."""
-    step = -_exp_decay(lr, gamma, state.count)
+    then -lr(count), then trace(momentum). `state.count` is a Python int
+    or, in the static state, an int64 device tensor whose schedule table
+    covers `steps` steps; without `steps` (the eager cycle handed a
+    static state) a device count is read back. Returns (params,
+    state)."""
+    if torch.is_tensor(state.count) and steps is None:
+        state = state._replace(count=int(state.count))
+    step = -_decayed(lr, gamma, state.count, params[0].device, steps)
     new_p, new_nu, new_tr = [], [], []
     for p, g, nu, tr in zip(params, grads, state.nu, state.trace):
         nu = (1 - decay) * (g * g) + decay * nu
@@ -332,36 +414,74 @@ def init_global_poses(model: SMPLModel, pose2d, poses_smpl, betas_smpl,
                       pose_weights=None):
     """Per-frame 3D root translations from weighted 2D reprojection:
     Adam(exponential_decay(0.5, 1, 0.95), b1 = b2 = 0.5, eps 1e-6).
-    The SMPL joints do not depend on poses_T and are computed once.
-    Returns (poses_T (T, N, 1, 3), loss_2d history (num_iter,))."""
-    T, N = pose2d.shape[:2]
-    with torch.no_grad():
-        out = smpl_forward(model, betas_smpl.reshape(T * N, -1),
-                           poses_smpl.reshape(T * N, -1))
-        joints = torch.pow(1.1, xscale) * out["joints_alphapose"].reshape(
-            T, N, -1, 3)
-    vis = (pose2d[..., 2:] > joints_thr).to(torch.float32)
-    if pose_weights is not None:
-        vis = vis * pose_weights[None, None, :, None]
-    gt2d = pose2d[..., 0:2]
-
-    poses_T = torch.tensor([0.0, 0.0, 1.0], device=pose2d.device).expand(
-        T, N, 1, 3).contiguous()
+    The SMPL joints do not depend on poses_T and are computed once. The
+    eager loop of `init_step`; `cycle_graph.init_global_poses_fused`
+    replays a captured step. Returns (poses_T (T, N, 1, 3), loss_2d
+    history (num_iter,))."""
+    problem = InitProblem.create(model, pose2d, poses_smpl, betas_smpl,
+                                 cam_K, xscale, dist_coef, proj2d_coef,
+                                 reg_velocity_coef, joints_thr, pose_weights)
+    poses_T = problem.start()
     mu = torch.zeros_like(poses_T)
     nu = torch.zeros_like(poses_T)
     hist = []
     for i in range(num_iter):
-        p = poses_T.detach().requires_grad_(True)
-        proj = project_points(joints + p, cam_K, dist_coef=dist_coef)
-        loss_2d = torch.mean(torch.square(vis * proj - vis * gt2d))
-        speed = torch.sum(torch.square(p[1:] - p[:-1]))
-        loss = proj2d_coef * loss_2d + reg_velocity_coef * speed
-        (g,) = torch.autograd.grad(loss, p)
-        upd, mu, nu = adam_update(g, mu, nu, i, _exp_decay(0.5, 0.95, i),
-                                  0.5, 0.5, 1e-6)
-        poses_T = poses_T + upd
-        hist.append(loss_2d.detach())
+        poses_T, mu, nu, loss_2d = init_step(problem, poses_T, mu, nu, i)
+        hist.append(loss_2d)
     return poses_T, torch.stack(hist)
+
+
+class InitProblem(NamedTuple):
+    """What the init solve's steps read: the SMPL joints (computed once;
+    they do not depend on poses_T), the visibility weights and targets,
+    the camera and the coefficients."""
+
+    joints: torch.Tensor             # (T, N, J, 3)
+    vis: torch.Tensor                # (T, N, J, 1)
+    gt2d: torch.Tensor               # (T, N, J, 2)
+    cam_K: torch.Tensor
+    dist_coef: Optional[torch.Tensor]
+    proj2d_coef: float
+    reg_velocity_coef: float
+
+    @classmethod
+    def create(cls, model: SMPLModel, pose2d, poses_smpl, betas_smpl,
+               cam_K, xscale, dist_coef, proj2d_coef, reg_velocity_coef,
+               joints_thr, pose_weights) -> "InitProblem":
+        T, N = pose2d.shape[:2]
+        with torch.no_grad():
+            out = smpl_forward(model, betas_smpl.reshape(T * N, -1),
+                               poses_smpl.reshape(T * N, -1))
+            joints = torch.pow(1.1, xscale) * out[
+                "joints_alphapose"].reshape(T, N, -1, 3)
+        vis = (pose2d[..., 2:] > joints_thr).to(torch.float32)
+        if pose_weights is not None:
+            vis = vis * pose_weights[None, None, :, None]
+        return cls(joints, vis, pose2d[..., 0:2], cam_K, dist_coef,
+                   proj2d_coef, reg_velocity_coef)
+
+    def start(self) -> torch.Tensor:
+        """The initial poses_T: (0, 0, 1) for every person and frame."""
+        T, N = self.joints.shape[:2]
+        return _on_device((0.0, 0.0, 1.0), torch.float32,
+                          self.joints.device).expand(T, N, 1, 3).contiguous()
+
+
+def init_step(problem: InitProblem, poses_T, mu, nu, i, steps=None):
+    """Adam step `i` of the init solve (a Python int, or an int64 device
+    count whose schedule tables cover `steps` steps). Returns (poses_T,
+    mu, nu, loss_2d)."""
+    pr = problem
+    p = poses_T.detach().requires_grad_(True)
+    proj = project_points(pr.joints + p, pr.cam_K, dist_coef=pr.dist_coef)
+    loss_2d = torch.mean(torch.square(pr.vis * proj - pr.vis * pr.gt2d))
+    speed = torch.sum(torch.square(p[1:] - p[:-1]))
+    loss = pr.proj2d_coef * loss_2d + pr.reg_velocity_coef * speed
+    (g,) = torch.autograd.grad(loss, p)
+    upd, mu, nu = adam_update(
+        g, mu, nu, i, _decayed(0.5, 0.95, i, poses_T.device, steps), 0.5,
+        0.5, 1e-6, steps)
+    return poses_T + upd, mu, nu, loss_2d.detach()
 
 
 def init_params(model: SMPLModel, data_pose2d: np.ndarray,
@@ -369,8 +489,11 @@ def init_params(model: SMPLModel, data_pose2d: np.ndarray,
                 cam_K: np.ndarray, cfg: EngineConfig,
                 scale_factor: Optional[np.ndarray] = None,
                 num_iter: int = 100):
-    """Initial StageParams on the model's device. Returns (params,
-    init history (numpy), optimize_scale)."""
+    """Initial StageParams on the model's device, the init solve run over
+    static buffers (`cycle_graph.init_global_poses_fused`: on the card
+    one captured Adam step, replayed). Returns
+    (params, init history (numpy), optimize_scale)."""
+    from .cycle_graph import init_global_poses_fused
     dev = model.device
     T, N = data_pose2d.shape[:2]
     if scale_factor is not None:
@@ -384,7 +507,7 @@ def init_params(model: SMPLModel, data_pose2d: np.ndarray,
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    poses_T, hist = init_global_poses(
+    poses_T, hist = init_global_poses_fused(
         model, put(data_pose2d), put(data_poses_smpl),
         put(data_betas_smpl), put(cam_K), xscale,
         dist_coef=_dist_coef(cfg, dev), num_iter=num_iter,
@@ -569,7 +692,7 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
 
     # 2D keypoint loss
     proj = project_points(joints_abs, cam_K, dist_coef=_dist_coef(cfg, dev))
-    norm = torch.tensor([W, H], dtype=f32, device=dev)
+    norm = _on_device((W, H), f32, dev)
     w2d = gate(conf_ok * fv[..., None, None], obs_w)
     jw = _j17_weights(cfg, dev)
     if jw is not None:
@@ -597,7 +720,7 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
     loss_depth = torch.zeros((), device=dev)
     loss_sil = torch.zeros((), device=dev)
     for win, group in cfg.window_groups:
-        g = torch.as_tensor(group, device=dev)
+        g = _on_device(group, torch.int64, dev)
         ng = len(group)
         raster = rasterize_bodies(
             verts_abs[:, g].reshape(C * ng, -1, 3), model.faces, cam_K,
@@ -753,13 +876,17 @@ def cycle_loss_and_grads(params: StageParams, model: SMPLModel,
 # ---------------------------------------------------------------------------
 
 def grad_step(params: StageParams, opt_state: RMSpropState, model, data,
-              aux, coefs, cfg: EngineConfig, optimize_scale: bool):
+              aux, coefs, cfg: EngineConfig, optimize_scale: bool,
+              steps: Optional[int] = None):
+    """The full-batch gradient and one RMSprop update (`steps`: the
+    steps a device count's schedule table covers)."""
     loss, parts, grads = cycle_loss_and_grads(params, model, data, aux,
                                               coefs, cfg)
     if not optimize_scale:
         grads = grads._replace(xscale=torch.zeros_like(grads.xscale))
     with torch.no_grad():
-        params, opt_state = rmsprop_update(grads, opt_state, params)
+        params, opt_state = rmsprop_update(grads, opt_state, params,
+                                           steps=steps)
     return params, opt_state, loss, parts
 
 
@@ -783,6 +910,7 @@ def update_filtered_targets(params: StageParams, model: SMPLModel,
     state carried across chunks."""
     C = cfg.chunk
     scale = scale_factor_of(params)
+    t_e = _filter_time_base(cfg.padded_frames, cfg.frame_rate)
     diffs = []
     state, prev = None, None
     for i in range(cfg.num_chunks):
@@ -797,26 +925,41 @@ def update_filtered_targets(params: StageParams, model: SMPLModel,
                 state, xf = (x, torch.zeros_like(x)), x
                 diffs.append(torch.zeros_like(x))
             else:
-                # t_e as a float32 scalar, like the JAX package's
-                # t.astype(f32) / frame_rate
-                te = torch.clamp(torch.tensor(float(t), dtype=torch.float32)
-                                 / cfg.frame_rate, min=1e-6)
-                state, xf = one_euro_step(state, x, te, cfg.min_cutoff2,
+                state, xf = one_euro_step(state, x, t_e[t], cfg.min_cutoff2,
                                           cfg.beta2)
                 diffs.append(xf - prev)
             prev = xf
     return torch.stack(diffs).to(torch.bfloat16)
 
 
+@functools.cache
+def _filter_time_base(frames: int, frame_rate: float) -> torch.Tensor:
+    """The filtered-target refresh's 'ramp' time base t_e(t) for t in
+    [0, frames) as float32 CPU scalars, like the JAX package's
+    t.astype(f32) / frame_rate, built once: a CPU scalar enters the
+    device's arithmetic as a kernel argument, with no copy."""
+    return torch.stack([torch.clamp(torch.tensor(float(t),
+                                                 dtype=torch.float32)
+                                    / frame_rate, min=1e-6)
+                        for t in range(frames)])
+
+
+def refresh_flags(cycle_idx: int, cfg: EngineConfig) -> Tuple[bool, bool]:
+    """(do_scene, do_filt) of cycle `cycle_idx`, decided on the host from
+    the index: the scene rebuild every `scene_update_every` cycles and
+    the One-Euro target refresh every `update_filters_every`, both from
+    `warmup_cycles` on."""
+    do_aux = cycle_idx >= cfg.warmup_cycles
+    return (do_aux and cycle_idx % cfg.scene_update_every == 0,
+            do_aux and cycle_idx % cfg.update_filters_every == 0)
+
+
 def fused_aux_refresh(params: StageParams, aux: StageAux, cycle_idx: int,
                       model: SMPLModel, data: SeqData,
                       cfg: EngineConfig) -> StageAux:
-    """The scene rebuild (every `scene_update_every` cycles from
-    `warmup_cycles`) and the One-Euro target refresh (every
-    `update_filters_every`), decided on the host from the cycle index."""
-    do_aux = cycle_idx >= cfg.warmup_cycles
-    do_scene = do_aux and cycle_idx % cfg.scene_update_every == 0
-    do_filt = do_aux and cycle_idx % cfg.update_filters_every == 0
+    """The scene rebuild and the One-Euro target refresh of cycle
+    `cycle_idx` (`refresh_flags`)."""
+    do_scene, do_filt = refresh_flags(cycle_idx, cfg)
     scene = update_scene(params, data, cfg) if do_scene else aux.scene
     dvf = (update_filtered_targets(params, model, cfg) if do_filt
            else aux.verts_filt_diff)
@@ -835,29 +978,57 @@ def stage1_cycle(params: StageParams, opt_state: RMSpropState,
                      optimize_scale)
 
 
-def stage1_cycle_fused(params: StageParams, opt_state: RMSpropState,
+def stage1_cycle_eager(params: StageParams, opt_state: RMSpropState,
                        aux: StageAux, cycle_idx: int, model: SMPLModel,
                        data: SeqData, coefs, cfg: EngineConfig,
                        optimize_scale: bool = True):
-    """One production cycle: the conditional aux refreshes, then the
-    full-batch gradient and one RMSprop update. Returns (params,
-    opt_state, aux, loss, parts); loss and parts stay on the device."""
+    """One production cycle as eager torch on any device: the
+    conditional aux refreshes, then the full-batch gradient and one
+    RMSprop update. Returns (params, opt_state, aux, loss, parts); loss
+    and parts stay on the device."""
     aux = fused_aux_refresh(params, aux, cycle_idx, model, data, cfg)
     params, opt_state, loss, parts = grad_step(
         params, opt_state, model, data, aux, coefs, cfg, optimize_scale)
     return params, opt_state, aux, loss, parts
 
 
+def stage1_cycle_fused(params: StageParams, opt_state: RMSpropState,
+                       aux: StageAux, cycle_idx: int, model: SMPLModel,
+                       data: SeqData, coefs, cfg: EngineConfig,
+                       optimize_scale: bool = True):
+    """One production cycle. On CUDA tensors it is one replay of a
+    captured CUDA graph (`cycle_graph.replay_cycles`): params, RMSprop
+    state and aux are donated, as in the JAX package, i.e. the returned
+    ones are the graph's static buffers, which the next call updates in
+    place. On CPU tensors it is `stage1_cycle_eager`. Returns (params,
+    opt_state, aux, loss, parts)."""
+    if params.poses_T.is_cuda:
+        from .cycle_graph import replay_cycles
+        params, opt_state, aux, losses, parts = replay_cycles(
+            params, opt_state, aux, cycle_idx, model, data, coefs, cfg,
+            optimize_scale, 1)
+        return params, opt_state, aux, losses[0], parts[0]
+    return stage1_cycle_eager(params, opt_state, aux, cycle_idx, model,
+                              data, coefs, cfg, optimize_scale)
+
+
 def stage1_cycles_fused(params: StageParams, opt_state: RMSpropState,
                         aux: StageAux, cycle_idx0: int, model: SMPLModel,
                         data: SeqData, coefs, cfg: EngineConfig,
                         optimize_scale: bool = True, n_cycles: int = 1):
-    """`n_cycles` consecutive `stage1_cycle_fused` calls with cycle
-    indices cycle_idx0 + [0, n_cycles). Returns (params, opt_state, aux,
-    losses (n_cycles,), parts (n_cycles, len(LOG_KEYS)))."""
+    """`n_cycles` consecutive production cycles with cycle indices
+    cycle_idx0 + [0, n_cycles): on CUDA tensors n_cycles graph replays
+    with no host synchronization (donated as in `stage1_cycle_fused`),
+    on CPU tensors a loop of `stage1_cycle_eager`. Returns (params,
+    opt_state, aux, losses (n_cycles,), parts (n_cycles,
+    len(LOG_KEYS))), on the device."""
+    if params.poses_T.is_cuda:
+        from .cycle_graph import replay_cycles
+        return replay_cycles(params, opt_state, aux, cycle_idx0, model,
+                             data, coefs, cfg, optimize_scale, n_cycles)
     losses, parts = [], []
     for k in range(n_cycles):
-        params, opt_state, aux, loss, p = stage1_cycle_fused(
+        params, opt_state, aux, loss, p = stage1_cycle_eager(
             params, opt_state, aux, cycle_idx0 + k, model, data, coefs, cfg,
             optimize_scale)
         losses.append(loss)

@@ -9,11 +9,21 @@ checkpoints (`checkpoint_every`, `torch.save` in place of orbax) and a
 `torch.profiler` trace of cycle 2 (`profile_dir`); and
 `build_studio_sequence`, the studio-camera ingestion.
 
+On the card the fit runs as the JAX package's does, one device program
+per cycle: `fit` keeps params, RMSprop state and aux in the static
+buffers of an `engine.cycle_graph.CycleGraph` and runs each cycle as one
+replay of a captured CUDA graph, and the init solve replays one
+captured Adam step (`cycle_graph.init_global_poses_fused`). A capture
+that fails raises.
+On the CPU the same static-state bodies run eagerly.
+
 When a default process group of more than one rank is initialised (an
 entry point under `torch.distributed.run`), the fit shards the time
 axis over its ranks (`parallel/spmd.py`), as the JAX package does over
 its devices; rank 0 alone writes the pickles, checkpoints, traces and
-visualizations, from the gathered parameters.
+visualizations, from the gathered parameters. The sharded cycles run
+eagerly: gloo's collectives cannot be captured (a multi-card NCCL
+capture is not ported).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ..parallel import spmd as S
 from ..viz.export import (save_visualization_init_data,
                           save_visualization_stage1)
 from . import optimizer as E
+from .cycle_graph import CycleGraph
 from .gapfill import interpolate_gap_trajectories
 
 
@@ -368,17 +379,20 @@ class Predictor:
     # ------------------------------------------------------------------
     def fit(self, params: E.StageParams, optimize_scale: bool,
             verbose: bool = True):
-        """The stage-1 cycle loop. With `bench_cycles` in the args, the
-        loop synchronizes at those cycle boundaries (a boundary equal to
-        `num_iter` marks the end of the loop) and records the wall time
-        of each window between them in `bench_window_seconds`.
+        """The stage-1 cycle loop: one `CycleGraph.replay` a cycle (a
+        CUDA graph replay on the card, the static-state body on the
+        CPU). With `bench_cycles` in the args, the loop synchronizes at
+        those cycle boundaries (a boundary equal to `num_iter` marks the
+        end of the loop) and records the wall time of each window
+        between them in `bench_window_seconds`.
 
         With `checkpoint_every` K > 0 it saves (params, RMSprop state)
-        after every K-th cycle to `output_path`/ckpt and first resumes
-        from the newest checkpoint there, running only the cycles after
-        it; the aux state (scene, filtered targets) is not saved and
-        starts afresh, as in the JAX package. With `profile_dir` it
-        writes a torch.profiler Chrome trace of cycle 2 there.
+        after every K-th cycle to `output_path`/ckpt, copied out of the
+        static buffers, and first resumes from the newest checkpoint
+        there, running only the cycles after it; the aux state (scene,
+        filtered targets) is not saved and starts afresh, as in the JAX
+        package. With `profile_dir` it writes a torch.profiler Chrome
+        trace of cycle 2 (a replay on the card) there.
 
         Sharded (`use_spmd`), each rank keeps its frames of the data,
         params and RMSprop state; the bench marks synchronize and then
@@ -412,6 +426,10 @@ class Predictor:
             if self.writer:
                 print(f"fit: sharding {cfg.padded_frames} frames over "
                       f"{mesh.size} devices", flush=True)
+        else:
+            graph = CycleGraph(params, opt_state, aux, model, data,
+                               self.coefs, cfg, optimize_scale,
+                               num_cycles=self.num_iter)
         profile_dir = getattr(self.args, "profile_dir", None)
         prof = None
 
@@ -434,9 +452,11 @@ class Predictor:
             if profile_dir and cycle == 2 and self.writer:
                 prof = self._start_profiler()
             if mesh is None:
-                params, opt_state, aux, loss, parts = E.stage1_cycle_fused(
-                    params, opt_state, aux, cycle, model, data, self.coefs,
-                    cfg, optimize_scale=optimize_scale)
+                graph.replay(cycle)
+                params, opt_state = graph.state.params, \
+                    graph.state.opt_state()
+                loss = graph.state.losses[cycle]
+                parts = graph.state.parts[cycle]
             else:
                 params, opt_state, aux, loss, parts = \
                     S.spmd_stage1_cycle_fused(
@@ -466,6 +486,8 @@ class Predictor:
                               if losses else np.zeros((0,), np.float32))
         if mesh is not None:
             params = S.gather_params(params, mesh)
+        else:
+            aux = graph.aux()
         self._params = params
         self._aux = aux
         return log, (self._final_scene(aux) if self.writer else None)

@@ -11,6 +11,7 @@ landmarks and `rot_mat_to_euler`. The pickle loader is numpy only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import pickle
 from typing import Dict, Optional, Tuple
@@ -152,6 +153,18 @@ def _tree_levels(parents):
     return levels
 
 
+# never evicted: a captured CUDA graph reads it at its address
+@functools.cache
+def _tree_index(parents: Tuple[int, ...], device: torch.device):
+    """`rigid_transform`'s parent index and tree levels as int64 tensors
+    on `device`, built once per (tree, device): a forward then copies
+    nothing from the host, so it can be captured in a CUDA graph."""
+    par = torch.as_tensor(np.asarray(parents[1:], np.int64), device=device)
+    return par, tuple((torch.as_tensor(idx, device=device),
+                       torch.as_tensor(pidx, device=device))
+                      for idx, pidx in _tree_levels(parents))
+
+
 def load_smpl_model(model_path: str,
                     parameters_path: Optional[str] = None,
                     device="cpu") -> SMPLModel:
@@ -237,8 +250,7 @@ def rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     (B, J, 3) rest pose. Returns (posed_joints (B, J, 3),
     rel_transforms (B, J, 4, 4))."""
     B, J = joints.shape[:2]
-    par = torch.as_tensor(np.asarray(parents[1:], np.int64),
-                          device=joints.device)
+    par, levels = _tree_index(tuple(int(p) for p in parents), joints.device)
     rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, par]],
                            dim=1)
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)  # (B,J,3,4)
@@ -248,9 +260,7 @@ def rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     local = torch.cat([top, bottom], dim=-2)                    # (B,J,4,4)
 
     world = local
-    for idx, pidx in _tree_levels(parents):
-        idx_t = torch.as_tensor(idx, device=joints.device)
-        pidx_t = torch.as_tensor(pidx, device=joints.device)
+    for idx_t, pidx_t in levels:
         composed = torch.matmul(world[:, pidx_t], local[:, idx_t])
         world = world.index_copy(1, idx_t, composed)
 

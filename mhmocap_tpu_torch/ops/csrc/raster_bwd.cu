@@ -104,7 +104,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 4)
                       const float* __restrict__ dlk,
                       const int* __restrict__ amin,
                       float* __restrict__ dplanes, int F_pad, int win,
-                      int n_xb, float inv_blur) {
+                      int n_xb, float inv_blur,
+                      unsigned long long* launches) {
+  count_launch(launches);
   extern __shared__ float4 smem4[];
   const int ch = blockIdx.x;
   const int b = blockIdx.y;
@@ -228,12 +230,15 @@ extern "C" int mhmocap_raster_bwd(const float* tab, const float* agg,
                                   const float* dz, const float* dlk,
                                   const int* amin, float* dplanes, int B,
                                   int F_pad, int win, int n_xb,
-                                  float inv_blur, void* stream) {
+                                  float inv_blur,
+                                  unsigned long long* launches,
+                                  void* stream) {
   using namespace mhmocap_raster;
   const int npx = STRIP_H * (win / n_xb);
   dim3 grid(F_pad / FACE_CHUNK, B);
   raster_bwd_kernel<<<grid, BWD_THREADS, bwd_shmem_bytes(npx),
                       static_cast<cudaStream_t>(stream)>>>(
-      tab, agg, dz, dlk, amin, dplanes, F_pad, win, n_xb, inv_blur);
+      tab, agg, dz, dlk, amin, dplanes, F_pad, win, n_xb, inv_blur,
+      launches);
   return static_cast<int>(cudaGetLastError());
 }

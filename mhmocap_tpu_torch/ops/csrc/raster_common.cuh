@@ -102,4 +102,15 @@ __device__ __forceinline__ float bbox_dist(float lox, float hix, float loy,
   return fmaxf(fmaxf(lox - px, px - hix), fmaxf(loy - py, py - hiy));
 }
 
+// One count per launch: the first thread of the grid adds one to the
+// kernel's launch counter (a device word, ops/raster_cuda.py
+// LaunchCounts), so that a launch recorded in a CUDA graph is counted at
+// each replay, where it runs.
+__device__ __forceinline__ void count_launch(
+    unsigned long long* launches) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0)
+    atomicAdd(launches, 1ULL);
+}
+
 }  // namespace mhmocap_raster

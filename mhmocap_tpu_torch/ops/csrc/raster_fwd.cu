@@ -131,7 +131,9 @@ __global__ void __launch_bounds__(FWD_MAX_THREADS)
                       const float* __restrict__ agg,
                       float* __restrict__ zmin, float* __restrict__ logkeep,
                       int* __restrict__ amin, int F_pad, int win, int n_xb,
-                      float inv_blur, float znear) {
+                      float inv_blur, float znear,
+                      unsigned long long* launches) {
+  count_launch(launches);
   extern __shared__ float4 smem4[];
   __shared__ int warp_count[FWD_MAX_THREADS / 32];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -354,6 +356,7 @@ extern "C" int mhmocap_raster_fwd(const float* tab, const float* agg,
                                   float* zmin, float* logkeep, int* amin,
                                   int B, int F_pad, int win, int n_xb,
                                   float inv_blur, float znear,
+                                  unsigned long long* launches,
                                   void* stream) {
   using namespace mhmocap_raster;
   const int xw = win / n_xb;
@@ -366,7 +369,8 @@ extern "C" int mhmocap_raster_fwd(const float* tab, const float* agg,
   dim3 grid(B, (win / STRIP_H) * n_xb);
   raster_fwd_kernel<<<grid, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      tab, agg, zmin, logkeep, amin, F_pad, win, n_xb, inv_blur, znear);
+      tab, agg, zmin, logkeep, amin, F_pad, win, n_xb, inv_blur, znear,
+      launches);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,6 +12,8 @@ package vmaps them).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -67,11 +69,20 @@ def fillin_masked(x, mask, filter_size: int, max_iters: int = 64):
     return xv, m
 
 
+# never evicted: a captured CUDA graph reads it at its address
+@functools.cache
+def _sobel_weight(dtype, device) -> torch.Tensor:
+    """The (2, 1, 3, 3) Sobel x and y kernels, built once per (dtype,
+    device) so that a call copies nothing from the host (and can be
+    captured in a CUDA graph)."""
+    kx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=dtype,
+                      device=device)
+    return torch.stack([kx, kx.T])[:, None]
+
+
 def sobel_magnitude(x: torch.Tensor) -> torch.Tensor:
     """|Sobel_x| + |Sobel_y| with 3x3 kernels and reflect padding."""
-    kx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]],
-                      dtype=x.dtype, device=x.device)
-    w = torch.stack([kx, kx.T])[:, None]                  # (2, 1, 3, 3)
+    w = _sobel_weight(x.dtype, x.device)
     xp = F.pad(x.reshape((-1, 1) + x.shape[-2:]), (1, 1, 1, 1),
                mode="reflect")
     g = F.conv2d(xp, w)

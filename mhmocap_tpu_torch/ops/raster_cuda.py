@@ -31,6 +31,9 @@ design answers). This module holds what surrounds them:
   * `RasterPlanes`, the autograd.Function: on a CUDA tensor it
     launches the kernels (or raises), on a CPU tensor it runs the
     plain version;
+  * `LaunchCounts` (`RasterPlanes.launches`): each kernel counts its own
+    launches on the device, so a launch recorded in a CUDA graph counts
+    at every replay;
   * the build-and-load helper: nvcc for sm_90a into build/ at first
     use, bound with ctypes.
 
@@ -47,8 +50,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections.abc import Mapping
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -103,19 +107,16 @@ def _fold_pack(planes, bbox, oks, okd, ymin, ymax, reach: float):
     nc = F_pad // FACE_CHUNK
     dev, f32 = planes.device, torch.float32
 
+    z_invalid, bbox_invalid = _pack_fills(dev)
     edge = torch.where(oks[..., None], planes[..., :9],
                        torch.zeros((), dtype=f32, device=dev))
     edge = edge.reshape(B, Fn, 3, 3).clone()
     edge[..., 0, 2] = torch.where(oks, edge[..., 0, 2],
                                   torch.full_like(edge[..., 0, 2],
                                                   D_INVALID))
-    zpl = torch.where(okd[..., None], planes[..., 9:12],
-                      torch.tensor([0.0, 0.0, -D_INVALID], dtype=f32,
-                                   device=dev))
+    zpl = torch.where(okd[..., None], planes[..., 9:12], z_invalid)
     blocks = torch.cat([edge.reshape(B, Fn, 9), zpl], dim=-1)
-    bbox_k = torch.where(oks[..., None], bbox,
-                         torch.tensor([-BIG, BIG, -BIG, BIG], dtype=f32,
-                                      device=dev))
+    bbox_k = torch.where(oks[..., None], bbox, bbox_invalid)
     bbox_s = bbox
     if F_pad > Fn:
         npad = F_pad - Fn
@@ -148,6 +149,17 @@ def _fold_pack(planes, bbox, oks, okd, ymin, ymax, reach: float):
         cm(ymax, -BIG, torch.amax),
     ], dim=-1).contiguous()
     return tab, agg
+
+
+# never evicted: a captured CUDA graph reads it at its address
+@functools.cache
+def _pack_fills(device):
+    """`_fold_pack`'s z plane and bbox of an invalid face, built once per
+    device so that a pack copies nothing from the host (and can be
+    captured in a CUDA graph)."""
+    f32 = torch.float32
+    return (torch.tensor([0.0, 0.0, -D_INVALID], dtype=f32, device=device),
+            torch.tensor([-BIG, BIG, -BIG, BIG], dtype=f32, device=device))
 
 
 def _strip_chunk_lists(agg, win: int):
@@ -459,9 +471,11 @@ def _library() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from csrc/."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mhmocap_raster_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
+    lib.mhmocap_raster_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p,
+                                       p]
     lib.mhmocap_raster_fwd.restype = i
-    lib.mhmocap_raster_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.mhmocap_raster_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p,
+                                       p]
     lib.mhmocap_raster_bwd.restype = i
     lib.mhmocap_raster_log1p_check.argtypes = [p, p]
     lib.mhmocap_raster_log1p_check.restype = i
@@ -497,13 +511,57 @@ def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+class LaunchCounts(Mapping):
+    """{"fwd": n, "bwd": n}: the raster kernels' launches, counted by the
+    kernels: the first thread of each launch adds one to its kernel's
+    word of a per-device int64 counter (raster_common.cuh count_launch),
+    so a launch recorded in a CUDA graph counts at each replay, when it
+    runs, and the capture counts nothing. Reading synchronizes with the
+    counters' devices; `reset` zeroes them on their current streams."""
+
+    NAMES = ("fwd", "bwd")
+
+    def __init__(self):
+        self._counters: Dict[torch.device, torch.Tensor] = {}
+
+    def pointer(self, name: str, device) -> int:
+        """The device address of `name`'s counter on `device`, made at
+        the first eager launch there (a capture may not allocate it)."""
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        c = self._counters.get(device)
+        if c is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the raster launch counter is made by "
+                                   "an eager launch, not inside a capture")
+            c = self._counters[device] = torch.zeros(
+                len(self.NAMES), dtype=torch.int64, device=device)
+        return c.data_ptr() + c.element_size() * self.NAMES.index(name)
+
+    def reset(self):
+        for c in self._counters.values():
+            c.zero_()
+
+    def __getitem__(self, name: str) -> int:
+        i = self.NAMES.index(name)
+        return sum(int(c[i]) for c in self._counters.values())
+
+    def __iter__(self):
+        return iter(self.NAMES)
+
+    def __len__(self) -> int:
+        return len(self.NAMES)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
 def raster_fwd_cuda(tab, agg, win: int, inv_blur: float, znear: float):
     """Launch the forward kernel -> (zmin, logkeep, amin) (B, win, win).
     The kernel finds each cell's chunks from agg itself and writes every
-    pixel once."""
-    out = _launch_fwd(tab, agg, win, inv_blur, znear)
-    RasterPlanes.launches["fwd"] += 1
-    return out
+    pixel once, and counts its launch in `RasterPlanes.launches`."""
+    return _launch_fwd(tab, agg, win, inv_blur, znear)
 
 
 def _launch_fwd(tab, agg, win: int, inv_blur: float, znear: float,
@@ -524,7 +582,8 @@ def _launch_fwd(tab, agg, win: int, inv_blur: float, znear: float,
     err = (lib or _library()).mhmocap_raster_fwd(
         tab.data_ptr(), agg.data_ptr(), zmin.data_ptr(), logkeep.data_ptr(),
         amin.data_ptr(), B, F_pad, win, _n_xb(win), float(inv_blur),
-        float(znear), _stream_ptr(dev))
+        float(znear), RasterPlanes.launches.pointer("fwd", dev),
+        _stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster forward kernel launch failed: CUDA "
                            f"error {err}")
@@ -548,7 +607,8 @@ def log1p_shortcut_mismatches(device) -> int:
 def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
     """Launch the backward kernel -> d_planes (B, F_pad, 12). The kernel
     writes every entry once (chunks that reach no cell get zeros), so
-    the output is not zero-filled first."""
+    the output is not zero-filled first, and counts its launch in
+    `RasterPlanes.launches`."""
     _check_window(win)
     B, _, F_pad = tab.shape
     nc = F_pad // FACE_CHUNK
@@ -565,11 +625,11 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
     err = _library().mhmocap_raster_bwd(
         tab.data_ptr(), agg.data_ptr(), dz.data_ptr(), dlk.data_ptr(),
         amin.data_ptr(), dplanes.data_ptr(), B, F_pad, win, _n_xb(win),
-        float(inv_blur), _stream_ptr(dev))
+        float(inv_blur), RasterPlanes.launches.pointer("bwd", dev),
+        _stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster backward kernel launch failed: CUDA "
                            f"error {err}")
-    RasterPlanes.launches["bwd"] += 1
     return dplanes
 
 
@@ -588,10 +648,11 @@ class RasterPlanes(torch.autograd.Function):
     planes (B, F, 12) (differentiated); bbox (B, F, 4), lo_y/hi_y (B, F)
     reach-expanded y extents, ok_sil/ok_depth (B, F) bool (data only).
     zbuf is +inf where no face covers. CUDA tensors run the kernels,
-    CPU tensors the plain version. `launches` counts kernel launches.
+    CPU tensors the plain version. `launches` counts kernel launches
+    (`LaunchCounts`).
     """
 
-    launches = {"fwd": 0, "bwd": 0}
+    launches = LaunchCounts()
 
     @staticmethod
     def forward(ctx, planes, bbox, lo_y, hi_y, ok_sil, ok_depth, win,

@@ -30,6 +30,7 @@ visualization helpers.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -150,17 +151,27 @@ def window_origin(uv, z, settings: RasterSettings):
     -> (..., 2) int64, centred on the bbox of the in-front vertices and
     clamped to the image. torch.round, like jnp.round, rounds half to
     even."""
-    W, H = settings.image_size
     win = settings.window
     ok = (z > settings.znear)[..., None]
-    big = torch.tensor([W, H], dtype=uv.dtype, device=uv.device)
+    big, max_xy = _window_bounds(tuple(settings.image_size), win, uv.dtype,
+                                 uv.device)
     lo = torch.where(ok, uv, big).amin(dim=-2)
     hi = torch.where(ok, uv, -big).amax(dim=-2)
     center = (0.5 * (lo + hi)).detach()
     origin = torch.round(center - win / 2.0).to(torch.int64)
-    max_xy = torch.tensor([max(W - win, 0), max(H - win, 0)],
-                          dtype=torch.int64, device=uv.device)
     return torch.minimum(torch.clamp(origin, min=0), max_xy)
+
+
+# never evicted: a captured CUDA graph reads it at its address
+@functools.cache
+def _window_bounds(image_size, win: int, dtype, device):
+    """`window_origin`'s (W, H) fill and its largest origin, built once
+    per (image, window, device) so that a call copies nothing from the
+    host (and can be captured in a CUDA graph)."""
+    W, H = image_size
+    return (torch.tensor([W, H], dtype=dtype, device=device),
+            torch.tensor([max(W - win, 0), max(H - win, 0)],
+                         dtype=torch.int64, device=device))
 
 
 def _raster_window_planes(fuv, fz, face_ok, origin,

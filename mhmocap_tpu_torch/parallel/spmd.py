@@ -391,9 +391,7 @@ def spmd_fused_aux_refresh(params: E.StageParams, aux: E.StageAux,
     """`fused_aux_refresh` on the shards: the same scene on every rank,
     and this rank's frames of the filtered targets, each equal to the
     single-device value."""
-    do_aux = cycle_idx >= cfg.warmup_cycles
-    do_scene = do_aux and cycle_idx % cfg.scene_update_every == 0
-    do_filt = do_aux and cycle_idx % cfg.update_filters_every == 0
+    do_scene, do_filt = E.refresh_flags(cycle_idx, cfg)
     scene, dvf = aux.scene, aux.verts_filt_diff
     with torch.no_grad():
         if do_scene:
@@ -464,9 +462,7 @@ def cycle_collectives(cfg: E.EngineConfig, mesh: TimeMesh,
     hl, N = cfg.halo, cfg.num_people
     local = cfg.padded_frames // mesh.size
     local_chunks = local // cfg.chunk
-    do_aux = cycle_idx >= cfg.warmup_cycles
-    do_scene = do_aux and cycle_idx % cfg.scene_update_every == 0
-    do_filt = do_aux and cycle_idx % cfg.update_filters_every == 0
+    do_scene, do_filt = E.refresh_flags(cycle_idx, cfg)
     words = (2 * hl * N * (POSE_WIDTH + 2)
              + local_chunks * (1 + len(E.LOG_KEYS) + N * 10 + N)
              + do_scene * local * 2 + do_filt * local * N * POSE_WIDTH)

@@ -5,8 +5,10 @@
 
 Counterpart of the JAX package's `script/profile_cycle.py` on the bench
 workload (`workload.make_ts1_like_seq`: T=201, N=3, 256x256, windows
-160/128/112). After the init solve and `--warm` cycles (30 warm-up
-cycles, so the scene rebuild runs in every measured cycle) it reports:
+160/128/112). The cycles are `stage1_cycle_fused` calls, i.e. CUDA
+graph replays (`engine/cycle_graph.py`); the phases alone run eagerly.
+After the init solve and `--warm` cycles (30 warm-up cycles, so the
+scene rebuild runs in every measured cycle) it reports:
 
   * the wall time per cycle over `--timed` cycles, synchronized at both
     ends and not profiled;
@@ -95,8 +97,7 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
     report("phases alone, synchronized: " + ", ".join(
         f"{k} {_synced(fn):.4f} s" for k, fn in phases.items()))
 
-    for k in RasterPlanes.launches:
-        RasterPlanes.launches[k] = 0
+    RasterPlanes.launches.reset()
     first = cycle
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -180,3 +180,60 @@ def test_cuda_fhsog_full_frame_window(cuda_device, monkeypatch, size):
     for k in (0, 1, 2, 4):
         np.testing.assert_allclose(n(got[k]), n(ref[k]), rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_equals_eager(cuda_device):
+    """A CycleGraph on the card (one captured graph per variant, the
+    cadence shrunk to warmup 2 / filter refresh every 3, so cycles 0-6
+    run every variant) against the eager stage1_cycle_eager loop from
+    the same init: every cycle's loss and parts, the final params and
+    RMSprop state bit-identical; every cycle, a replay or a variant's
+    eager first cycle, launches each kernel once a chunk a window group
+    (counted by the kernels); the init solve's graph equals its eager
+    loop."""
+    import dataclasses
+    import tempfile
+    from mhmocap_tpu_torch.engine import cycle_graph as CG
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.workload import bench_args, make_ts1_like_seq
+    model = make_synthetic_smpl(num_vertices=512, seed=1)
+    seq, _ = make_ts1_like_seq(T=8, N=2, side=128, model=model)
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = Predictor(seq, model, tmp, bench_args(1, None, 64),
+                         device=cuda_device)
+    cfg = dataclasses.replace(pred.cfg, warmup_cycles=2,
+                              update_filters_every=3)
+    m, coefs = pred.model, pred.coefs
+    params, _, _ = E.init_params(m, seq.pose2d, seq.poses_smpl,
+                                 seq.betas_smpl, seq.cam["K"], cfg)
+    data = E.prepare_seq_data(seq, cfg, cuda_device)
+    aux = E.init_aux(cfg, m.num_vertices, params.betas.clone())
+    p, st, a, losses = params, E.rmsprop_init(params), aux, []
+    for c in range(7):
+        p, st, a, loss, parts = E.stage1_cycle_eager(p, st, a, c, m, data,
+                                                     coefs, cfg)
+        losses.append(torch.cat([loss[None], parts]))
+    g = CG.CycleGraph(params, E.rmsprop_init(params), aux, m, data, coefs,
+                      cfg, num_cycles=7)
+    per_replay = len(cfg.window_groups) * cfg.num_chunks
+    for c in range(7):
+        TC.RasterPlanes.launches.reset()
+        g.replay(c)
+        assert dict(TC.RasterPlanes.launches) == {"fwd": per_replay,
+                                                  "bwd": per_replay}, c
+    assert len(g.graphs) == 4
+    assert torch.equal(torch.cat([g.state.losses[:, None], g.state.parts],
+                                 1), torch.stack(losses))
+    for x, y in zip(CG.tree_leaves((g.state.params, g.state.nu,
+                                    g.state.trace)),
+                    CG.tree_leaves((p, st.nu, st.trace))):
+        assert torch.equal(x, y)
+    args = [torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+            for x in (seq.pose2d, seq.poses_smpl, seq.betas_smpl,
+                      seq.cam["K"])] + [torch.zeros((1, 2, 1, 1),
+                                                    device=cuda_device)]
+    for x, y in zip(CG.init_global_poses_fused(m, *args),
+                    E.init_global_poses(m, *args)):
+        assert torch.equal(x, y)

@@ -28,8 +28,9 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)
     import mhmocap_tpu_torch
-    from mhmocap_tpu_torch import (bench_e2e, config, convert,
-                                   decompose_jitter, diff_final_results,
+    from mhmocap_tpu_torch import (bench_e2e, bench_multicycle, config,
+                                   convert, decompose_jitter,
+                                   diff_final_results,
                                    eval_mupots, io, predict_internet,
                                    predict_mupots, predict_mupots_sweep,
                                    profile_cycle, raster_ablation, sweep,
@@ -37,8 +38,9 @@ SCRIPT = textwrap.dedent("""
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
                                         mupots, romp, utils)
     from mhmocap_tpu_torch.data import synthetic as synthetic_tree
-    from mhmocap_tpu_torch.engine import (fhsog, gapfill, losses,
-                                          optimizer as E, predictor, scene)
+    from mhmocap_tpu_torch.engine import (cycle_graph, fhsog, gapfill,
+                                          losses, optimizer as E, predictor,
+                                          scene)
     from mhmocap_tpu_torch.eval import metrics, mupots_eval
     from mhmocap_tpu_torch.models import loader, smpl, synthetic
     from mhmocap_tpu_torch.ops import (cameras, image, morphology, one_euro,
