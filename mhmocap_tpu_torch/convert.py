@@ -12,7 +12,9 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from .engine.optimizer import StageParams, PARAM_NAMES
+from .engine.optimizer import (PARAM_NAMES, RMSpropState, StageAux,
+                               StageParams)
+from .engine.scene import ScenePointCloud
 from .models.smpl import smpl_model_from_numpy  # noqa: F401  (re-export)
 
 
@@ -38,8 +40,31 @@ def opt_state_from_optax(nu: Sequence, trace: Sequence, count: int,
     """The port's RMSprop state from optax's rmsprop chain state:
     `ScaleByRmsState.nu`, `TraceState.trace` (both StageParams-shaped,
     given as numpy leaves in field order) and the schedule's count."""
-    from .engine.optimizer import RMSpropState
     return RMSpropState(
         nu=params_from_numpy(nu, device),
         trace=params_from_numpy(trace, device),
         count=int(count))
+
+
+def aux_from_numpy(betas_ref, scene, have_scene, verts_filt_diff,
+                   have_filters, device="cpu") -> StageAux:
+    """The port's StageAux from the JAX package's, leaf by leaf as numpy:
+    betas_ref (1, N, 10); scene, the ScenePointCloud's arrays in field
+    order (points, valid, depth, depth_valid); verts_filt_diff
+    (Tp, N, V, 3), bfloat16 or any float array holding bfloat16 values
+    (cast exactly); and the have_scene / have_filters flags, which JAX
+    keeps as 0/1 arrays and the port as host bools."""
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype)).to(device)
+
+    points, valid, depth, depth_valid = scene
+    return StageAux(
+        betas_ref=put(betas_ref, np.float32),
+        scene=ScenePointCloud(points=put(points, np.float32),
+                              valid=put(valid, bool),
+                              depth=put(depth, np.float32),
+                              depth_valid=put(depth_valid, bool)),
+        have_scene=bool(np.asarray(have_scene)),
+        verts_filt_diff=put(verts_filt_diff, np.float32).to(torch.bfloat16),
+        have_filters=bool(np.asarray(have_filters)))
+

@@ -51,6 +51,10 @@ from .cycle_graph import CycleGraph
 from .gapfill import interpolate_gap_trajectories
 
 
+def io_mkdir(path: str):
+    os.makedirs(path, exist_ok=True)
+
+
 def tune_time_layout(T: int, n_dev: int = 1, user_bucket: int = 0,
                      batch_size: int = 10):
     """(chunk, frame_bucket) for a T-frame fit whose time axis is sharded

@@ -25,6 +25,8 @@ the GPU has no PIL, so the port reads and writes its images itself:
   libjpeg's near half steps, which moves decoded pixels by 6-10 levels
   at q=92 (up to 16 at q=75) from PIL's file, beyond the decoder's
   bound of 3.
+* `io_mkdir` and `save_image`, the JAX module's two helpers: mkdir -p,
+  and an image array written as PNG or JPEG by its file suffix.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import functools
 import re
 import struct
 import zlib
+from pathlib import Path
 from typing import List, Sequence
 
 import numpy as np
@@ -794,3 +797,30 @@ def _put_value(bw: _BitWriter, table, run_bits: int, value: int):
     bw.put(*table[run_bits | size])
     if size:
         bw.put(value if value > 0 else value + (1 << size) - 1, size)
+
+
+# ---------------------------------------------------------------------------
+# The JAX module's helpers
+# ---------------------------------------------------------------------------
+
+def io_mkdir(newpath: str):
+    """mkdir -p."""
+    Path(newpath).mkdir(parents=True, exist_ok=True)
+
+
+def save_image(img, filename: str):
+    """Save a [0, 1] float array, stored as (255.9 * clip).astype(uint8),
+    or a uint8 array: (H, W) grayscale, (H, W, 3) RGB or (H, W, 4) RGBA
+    as PNG (`.png`), RGB as JPEG at PIL's default quality of 75
+    (`.jpg`, `.jpeg`). Any other suffix raises ValueError."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (255.9 * np.clip(img, 0.0, 1.0)).astype(np.uint8)
+    suffix = Path(filename).suffix.lower()
+    if suffix == ".png":
+        write_png(filename, img)
+    elif suffix in (".jpg", ".jpeg"):
+        write_jpeg(filename, img, quality=75)
+    else:
+        raise ValueError(f"save_image: unsupported file suffix {suffix!r} "
+                         f"(.png, .jpg or .jpeg)")

@@ -167,3 +167,57 @@ def test_interlaced_png_raises(tmp_path):
         f.write(bytes(data))
     with pytest.raises(ValueError, match="interlaced"):
         TIO.read_png(p)
+
+
+@pytest.mark.parametrize("dtype", ["float", "uint8"])
+@pytest.mark.parametrize("kind,suffix", [("L", ".png"), ("RGB", ".png"),
+                                         ("RGBA", ".png"), ("RGB", ".jpg"),
+                                         ("RGB", ".JPEG")])
+def test_save_image_matches_jax(tmp_path, kind, suffix, dtype):
+    """`io.save_image` against the JAX package's (PIL's
+    `Image.fromarray(img).save(filename)`), for a [0, 1] float array
+    (out-of-range values clipped, 255.9 * clip truncated) and a uint8
+    array: a PNG decodes, in PIL, to the pixels and mode of PIL's file;
+    a JPEG is PIL's file byte for byte (quality 75, PIL's default)."""
+    from mhmocap_tpu.io import save_image as jax_save_image
+    rng = np.random.RandomState(6)
+    shape = {"L": (29, 41), "RGB": (40, 56, 3), "RGBA": (21, 18, 4)}[kind]
+    img = (rng.rand(*shape) * 1.2 - 0.1).astype(np.float32)
+    if kind == "RGB":
+        img = _scene(*shape[:2], rng).astype(np.float32) / 255.0
+    if dtype == "uint8":
+        img = (255.9 * np.clip(img, 0.0, 1.0)).astype(np.uint8)
+    ours, theirs = (str(tmp_path / (name + suffix))
+                    for name in ("ours", "pil"))
+    TIO.save_image(img, ours)
+    jax_save_image(img, theirs)
+    a, b = Image.open(ours), Image.open(theirs)
+    assert a.mode == b.mode == kind and a.format == b.format
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if suffix != ".png":
+        with open(ours, "rb") as fa, open(theirs, "rb") as fb:
+            assert fa.read() == fb.read()
+
+
+def test_save_image_refuses_other_suffixes(tmp_path):
+    with pytest.raises(ValueError, match="suffix"):
+        TIO.save_image(np.zeros((4, 4), np.uint8), str(tmp_path / "x.bmp"))
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("which", ["io", "predictor"])
+def test_io_mkdir_matches_jax(tmp_path, which):
+    """`io.io_mkdir` and `engine.predictor.io_mkdir`: mkdir -p, as the
+    JAX package's; a second call on the same path is a no-op."""
+    import mhmocap_tpu.io as JIO
+    from mhmocap_tpu.engine import predictor as JP
+    from mhmocap_tpu_torch.engine import predictor as TP
+    ours, ref = {"io": (TIO.io_mkdir, JIO.io_mkdir),
+                 "predictor": (TP.io_mkdir, JP.io_mkdir)}[which]
+    for fn, root in ((ours, tmp_path / "ours"), (ref, tmp_path / "ref")):
+        fn(str(root / "a" / "b"))
+        fn(str(root / "a" / "b"))
+    walk = {k: sorted(str(p.relative_to(tmp_path / k))
+                      for p in (tmp_path / k).rglob("*"))
+            for k in ("ours", "ref")}
+    assert walk["ours"] == walk["ref"] == ["a", "a/b"]

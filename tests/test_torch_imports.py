@@ -33,8 +33,9 @@ SCRIPT = textwrap.dedent("""
                                    diff_final_results,
                                    eval_mupots, io, predict_internet,
                                    predict_mupots, predict_mupots_sweep,
-                                   profile_cycle, raster_ablation, sweep,
-                                   visualization, workload)
+                                   profile_cycle, raster_ablation,
+                                   rounding_spread, sweep, visualization,
+                                   workload)
     from mhmocap_tpu_torch.data import (alphapose, assignment, ingestion,
                                         mupots, romp, utils)
     from mhmocap_tpu_torch.data import synthetic as synthetic_tree
@@ -49,6 +50,21 @@ SCRIPT = textwrap.dedent("""
     from mhmocap_tpu_torch.viz import export, viewer3d
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+    # the JAX io module's helpers and the Predictor module's io_mkdir,
+    # PNG and JPEG written without PIL
+    import os
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        io.io_mkdir(os.path.join(tmp, "a", "b"))
+        predictor.io_mkdir(os.path.join(tmp, "a", "c"))
+        img = np.linspace(0.0, 1.0, 16 * 24 * 3).reshape(16, 24, 3)
+        for name in ("a/b/x.png", "a/c/x.jpg"):
+            io.save_image(img, os.path.join(tmp, name))
+        assert np.array_equal(io.read_png(os.path.join(tmp, "a/b/x.png")),
+                              (255.9 * img).astype(np.uint8))
+        assert io.read_jpeg(os.path.join(tmp, "a/c/x.jpg")).shape == \
+            img.shape
 
     model = synthetic.make_synthetic_smpl(num_vertices=512, seed=1)
     out = smpl.smpl_forward(model, torch.zeros((2, 10)),
