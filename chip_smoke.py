@@ -29,11 +29,12 @@ Phases (any failure raises, so the process exits non-zero):
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
      each one CUDA graph replay (phases 5-9 run the Predictor on the
      graphs too), so that the scene rebuild (cycle 30) and the One-Euro
-     refresh (cycle 50) both run; checks the kernel launch counters
-     (through the replays), the losses,
-     the refreshes and the pickles, and prints the per-cycle and
-     init-solve seconds; fails on a raster call shape phase 3 did not
-     check;
+     refresh (cycle 50) both run; the fit captures its 4 variants
+     before its loop (CycleGraph.prepare), and every cycle from 30 is
+     timed; checks the kernel launch counters (through the replays),
+     the 4 variants, the losses, the refreshes and the pickles, and
+     prints the per-cycle, init-solve and capture seconds; fails on a
+     raster call shape phase 3 did not check;
   5. reference: a tiny Predictor.run on the card against the same run on
      the CPU (plain torch path);
   6. entry points: writes two synthetic MuPoTs trees with the port's
@@ -98,16 +99,25 @@ Phases (any failure raises, so the process exits non-zero):
      its eager loop, then cycles 0-52 (every variant: no
      refresh, the scene rebuild from 30, both refreshes at 50, the
      rebuild with filters from 51) eagerly (`stage1_cycle_eager`) and
-     through a `CycleGraph`: every cycle's loss and parts, the final
-     params and RMSprop state bit-identical, 21 forward and 21 backward
-     launches a cycle on both paths, counted by the kernels (a
-     variant's first cycle is its eager warm-up, the rest replays);
-     prints each variant's warm-up and capture
-     seconds, the graph pool's bytes, both runs' peak memory, the
+     through a `CycleGraph` whose `prepare` captured all four variants
+     before cycle 0, each warmed up on a snapshot of the state that is
+     then restored (as every fit on the card does): every cycle's loss
+     and parts, the final params and RMSprop state bit-identical, 21
+     forward and 21 backward launches a cycle on both paths, counted by
+     the kernels (every graph cycle a replay); prints prepare's seconds
+     (each variant's warm-up and capture, and the snapshots), the graph
+     pool's bytes, both runs' peak memory, the
      seconds a cycle of both paths over [30, 52) and at cycle 50 (a
      second replay of its graph), the device-busy share of a replayed
      cycle (torch.profiler, and CUDA events against the host clock), and
-     `bench_multicycle`'s loop / graph / K=5 / K=15 cadence.
+     `bench_multicycle`'s loop / graph / K=5 / K=15 cadence;
+ 12. bench: `python -m mhmocap_tpu_torch.bench`'s main at full size
+     (bench.py's workload and line; its JSON and `#` lines printed with
+     a "[12 bench]" prefix): three finite windows, each window's
+     seconds a cycle within 15% of phase 11's replay median (a window
+     that held a warm-up or a capture would read 35-75% slow), and the
+     raster launches of its bare cycle's warm-up and 3 replays, the
+     fit's 4 warm-ups and its 76 replays.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -458,8 +468,16 @@ def phase_main_path(out_dir):
           f"{T / np.median(per_cycle):.2f} frame-cycles/s, run {run_s:.1f}s, "
           f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
+    print(f"[4 main] {len(pred.capture_seconds)} variants captured before "
+          f"the loop, (warm-up, capture) s: "
+          + ", ".join(f"{tuple(int(x) for x in v)} ({w:.3f}, {c:.3f})"
+                      for v, (w, c) in pred.capture_seconds.items()),
+          flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a raster kernel never launched: {launches}")
+    if len(pred.capture_seconds) != 4:
+        raise AssertionError(f"{len(pred.capture_seconds)} variants "
+                             f"captured, not 4")
     if len(losses) != NUM_CYCLES or not np.isfinite(losses).all():
         raise AssertionError(f"non-finite or missing losses: {losses}")
     log_parts = np.asarray([list(r.values()) for r in out["stage1_log"]])
@@ -1404,6 +1422,11 @@ def phase_graphs():
     graph = CG.CycleGraph(params, E.rmsprop_init(params), aux0, m, data,
                           coefs, cfg, opt_scale, num_cycles=GRAPH_CYCLES)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.prepare(0, GRAPH_CYCLES)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
     variants = []
     g_secs, g_launches = _run_cycles(
         lambda c: variants.append(graph.replay(c)), GRAPH_CYCLES)
@@ -1445,15 +1468,17 @@ def phase_graphs():
         print(f"[11 graphs] variant {tuple(int(x) for x in v)}: warm-up "
               f"{warm:.3f}s, capture and instantiation {cap:.3f}s",
               flush=True)
+    caps = sum(w + c for w, c in graph.capture_seconds.values())
+    print(f"[11 graphs] prepare (4 variants before cycle 0) "
+          f"{prep_s:.3f}s: warm-ups and captures {caps:.3f}s, snapshots "
+          f"and restores {prep_s - caps:.3f}s", flush=True)
     pool = graph.pool_bytes()
     print(f"[11 graphs] graph pool "
           f"{'not named by the allocator' if pool is None else f'{pool / 2**20:.1f} MiB'}"
           f"; peak memory eager {eager['peak'] / 2**30:.2f} GiB, graphs "
           f"{g_peak / 2**30:.2f} GiB", flush=True)
     print(f"[11 graphs] seconds a cycle: eager {_span(eager['secs'])}; "
-          f"graphs {_span(g_secs)} (cycles 30, 50 and 51 are their "
-          f"variants' eager warm-ups, each followed by its capture)",
-          flush=True)
+          f"graphs {_span(g_secs)} (replays only)", flush=True)
 
     # steady replays after the comparison: cycle 50's graph (both
     # refreshes) again, then one steady cycle under the profiler and
@@ -1492,7 +1517,56 @@ def phase_graphs():
     print(f"[11 graphs] nvidia-smi: {smi_line()}", flush=True)
     if fails:
         raise AssertionError("graphs: " + "; ".join(fails))
-    return {k: sum(n[k] for n in g_launches) for k in want}, med
+    a, b = GRAPH_TIMED
+    return ({k: sum(n[k] for n in g_launches) for k in want},
+            {"replay_median": float(np.median(g_secs[a:b])),
+             "per_cycle": per_cycle, "variants": len(graph.graphs)})
+
+
+# Phase 12: a bench window's seconds a cycle may differ from phase 11's
+# replay median by this share (replays within one call spread under 1%;
+# a window that held a warm-up and a capture would read 35-75% slow)
+BENCH_WINDOW_TOL = 0.15
+
+
+def phase_bench(graphs):
+    """Phase 12: the port's bench.py at full size."""
+    import contextlib
+    import io
+    from mhmocap_tpu_torch import bench
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    fails = []
+    RasterPlanes.launches.reset()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = bench.main([])
+    wall = time.time() - t0
+    launches = dict(RasterPlanes.launches)
+    for line in buf.getvalue().splitlines():
+        print(f"[12 bench] {line}", flush=True)
+    wins = np.asarray(res["secondary"]["window_frame_cycles_per_sec"])
+    win_s = bench.T / wins
+    med = graphs["replay_median"]
+    print(f"[12 bench] bench.main {wall:.1f}s; windows' seconds a cycle "
+          f"{[round(float(x), 5) for x in win_s]} against phase 11's replay "
+          f"median {med:.5f}s (ratios "
+          f"{[round(float(x / med), 4) for x in win_s]}, bound "
+          f"{1 + BENCH_WINDOW_TOL}); launches {launches}", flush=True)
+    if len(wins) != 3 or not np.isfinite(wins).all():
+        fails.append(f"windows {wins.tolist()}")
+    elif np.abs(win_s / med - 1).max() > BENCH_WINDOW_TOL:
+        fails.append(f"a window's s/cycle {win_s.tolist()} is more than "
+                     f"{BENCH_WINDOW_TOL:.0%} from the replay median {med}")
+    # the bare cycle's warm-up and 3 replays, one warm-up of each of the
+    # fit's variants, its 76 replays; captures launch nothing
+    cycles = 4 + graphs["variants"] + bench.BENCH_CYCLES[-1] + 1
+    want = {k: cycles * graphs["per_cycle"] for k in launches}
+    if launches != want:
+        fails.append(f"bench launches {launches} != {want}")
+    if fails:
+        raise AssertionError("bench: " + "; ".join(fails))
+    return launches
 
 
 def main():
@@ -1509,10 +1583,11 @@ def main():
         fhsog_launches = phase_visualization_fhsog(
             tmp, os.path.join(tmp, "robust", "out", f"TS{ROBUST_TS}"))
     shard_launches = phase_sharded()
-    graph_launches, _ = phase_graphs()
+    graph_launches, graphs = phase_graphs()
+    bench_launches = phase_bench(graphs)
     # the launches of every main-path run, each counted from 0
     launches = {k: main_launches[k] + robust_launches[k] + fhsog_launches[k]
-                + shard_launches[k] + graph_launches[k]
+                + shard_launches[k] + graph_launches[k] + bench_launches[k]
                 + sum(v[k] for v in entry_launches.values())
                 for k in main_launches}
     # times and bounds at B=29, window 160; no single PyTorch call

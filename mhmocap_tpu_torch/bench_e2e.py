@@ -7,8 +7,10 @@ full 6890-vertex body), ingested by `load_sequence`, then the init solve
 and 250 stage-1 cycles of `Predictor.run` with raster_window 128 and
 the reference cycle schedule (the scene rebuilt every cycle and the
 filtered targets refreshed from cycle 30). Prints the wall time of each
-part and the steady cycle time over cycles [30, 55), one full
-filter-refresh period past the warmup.
+part, the set-up (the init solve, and every graph variant's warm-up
+and capture, which the fit runs before its loop on the card) and the
+steady cycle time over cycles [30, 55), one full filter-refresh period
+past the warmup.
 
 Usage:
     python -m mhmocap_tpu_torch.bench_e2e [--frames 201] [--people 3]
@@ -75,6 +77,10 @@ def main(argv=None):
     print(f"e2e: generate {t_gen:.0f}s  ingest {t_ingest:.0f}s  "
           f"fit+init {t_fit:.0f}s  "
           f"TOTAL {total:.0f}s ({total / 60:.1f} min)")
+    captures = p.capture_seconds.values()
+    print(f"e2e: set-up: init solve {p.init_seconds:.2f}s, graph warm-ups "
+          f"{sum(w for w, _ in captures):.2f}s and captures "
+          f"{sum(c for _, c in captures):.2f}s ({len(captures)} variants)")
     if p.bench_window_seconds:
         per_cycle = sum(p.bench_window_seconds) / (bc[1] - bc[0])
         print(f"e2e: steady-state cycle {per_cycle * 1e3:.0f}ms -> "

@@ -23,6 +23,7 @@ import argparse
 import math
 import os
 import re
+import subprocess
 import sys
 from typing import Any, List, Optional
 
@@ -345,6 +346,16 @@ def require_device(device, cpu_hint='device="cpu"'):
         raise RuntimeError(f"device {device}: no CUDA device is available "
                            f"(pass {cpu_hint} to run on the CPU)")
     return dev
+
+
+def gpu_name_and_power() -> str:
+    """nvidia-smi's name and power limit of the card, as
+    `--query-gpu=name,power.limit --format=csv,noheader` prints them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"); raises if nvidia-smi fails."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def resolve_device(parsed):

@@ -17,11 +17,13 @@ graph captured over static buffers:
     arithmetic of `optimizer.stage1_cycle_eager` (the same functions,
     their results copied into the buffers);
   * `CycleGraph`: the fit's static state and one graph per cycle
-    `Variant`, captured at the variant's first use into one shared
-    memory pool; `replay(cycle)` runs a cycle with no host
-    synchronization. The refresh cadence and the loss's branches on the
-    scene and the filtered targets are host decisions, so they key the
-    graphs, as the `lax.cond`s key the JAX program's branches;
+    `Variant`, each captured into one shared memory pool on a snapshot
+    of the state, which is then restored: ahead of the cycles by
+    `prepare`, or at the variant's first `replay`. `replay(cycle)` runs
+    a cycle as one graph replay with no host synchronization. The
+    refresh cadence and the loss's branches on the scene and the
+    filtered targets are host decisions, so they key the graphs, as the
+    `lax.cond`s key the JAX program's branches;
   * `replay_cycles`: `optimizer.stage1_cycle{,s}_fused` on CUDA tensors;
   * `init_global_poses_fused`: `optimizer.init_global_poses` as one
     captured Adam step, replayed for every step with no host
@@ -154,9 +156,11 @@ def cycle_body(st: StaticState, v: Variant, model, data: E.SeqData, coefs,
 def capture_graph(body: Callable[[], None], device, pool=None):
     """(graph, seconds): `body` run once eagerly on a side stream, as
     PyTorch's whole-network capture requires of a warm-up (its work is
-    real: callers count it as the first run), then captured in a CUDA
-    graph that shares memory pool `pool`. The capture runs nothing.
-    `seconds` = (warm-up, capture and instantiation), host clock."""
+    real: `init_global_poses_fused` counts it as the first step;
+    `CycleGraph` runs it on a snapshot and discards it), then captured
+    in a CUDA graph that shares memory pool `pool`. The capture runs
+    nothing. `seconds` = (warm-up, capture and instantiation), host
+    clock."""
     device = torch.device(device)
     t0 = time.perf_counter()
     side = torch.cuda.Stream(device)
@@ -177,12 +181,11 @@ class CycleGraph:
 
     Built from (params, opt_state, aux) before the first cycle (or from
     a checkpoint's), for cycles [0, num_cycles). `replay(cycle)` runs
-    one cycle: on CUDA one replay of its variant's graph; a variant's
-    first cycle runs eagerly on the static state as the capture's
-    warm-up, and its graph is captured after it, into one memory pool
-    shared by all variants. On the CPU it runs `cycle_body` eagerly.
-    `capture_seconds` holds each variant's (warm-up, capture)
-    seconds."""
+    one cycle: on CUDA one replay of its variant's graph, captured by
+    `prepare` into one memory pool shared by all variants (by the
+    replay itself if `prepare` has not covered the cycle); on the CPU
+    `cycle_body`, eagerly. `capture_seconds` holds each variant's
+    (warm-up, capture) seconds."""
 
     def __init__(self, params: E.StageParams, opt_state: E.RMSpropState,
                  aux: E.StageAux, model, data: E.SeqData, coefs,
@@ -233,8 +236,8 @@ class CycleGraph:
     def _cover(self, count: int):
         """Longer schedule tables once step `count` is past the state's
         (they then cover num_cycles more): the graphs captured with the
-        shorter ones are dropped, and captured again at their variants'
-        next cycles."""
+        shorter ones are dropped, and captured again before their
+        variants' next cycles."""
         if count >= self.state.steps:
             self.state = self.state._replace(
                 steps=E.schedule_len(count + self.num_cycles))
@@ -243,6 +246,50 @@ class CycleGraph:
     def _body(self, v: Variant):
         cycle_body(self.state, v, self.model, self.data, self.coefs,
                    self.cfg, self.optimize_scale)
+
+    def variants(self, first: int, last: int):
+        """The variants of cycles [first, last) in their order of first
+        use, found as `replay` finds them: from the host's view of the
+        cycles, with the refresh cadence."""
+        found = []
+        have_scene, have_filters = self.have_scene, self.have_filters
+        for cycle in range(first, last):
+            v = cycle_variant(cycle, have_scene, have_filters, self.cfg)
+            have_scene, have_filters = v.have_scene, v.have_filters
+            if v not in found:
+                found.append(v)
+        return found
+
+    def on_snapshot(self, fn: Callable[[], object]):
+        """fn(), after which every buffer of the state (params, RMSprop
+        state and count, scene, filtered targets, betas_ref, the log and
+        its row) is copied back from a snapshot taken before it."""
+        leaves = tuple(tree_leaves(self.state))
+        with torch.no_grad():
+            saved = tuple(t.clone() for t in leaves)
+        out = fn()
+        _copy_into(leaves, saved)
+        return out
+
+    def prepare(self, first: int, last: int):
+        """On CUDA, capture the graph of each variant of cycles
+        [first, last) that has none yet, before they run: each is warmed
+        up and captured `on_snapshot`, so the state and the host's view
+        are left as they were, and `replay` over those cycles only
+        replays. On the CPU there is nothing to capture."""
+        if self.device.type != "cuda":
+            return
+        # the schedule tables must cover the last cycle's step first:
+        # growing them later would drop the graphs captured here
+        self._cover(self._count + max(last - first - 1, 0))
+        for v in self.variants(first, last):
+            if v in self.graphs:
+                continue
+            graph, self.capture_seconds[v] = self.on_snapshot(
+                lambda: capture_graph(lambda: self._body(v), self.device,
+                                      self._pool))
+            self._pool = graph.pool()
+            self.graphs[v] = graph
 
     def replay(self, cycle: int) -> Variant:
         """Run stage-1 cycle `cycle` (its loss lands in
@@ -257,13 +304,10 @@ class CycleGraph:
             self.state.cycle.fill_(cycle)
         if self.device.type != "cuda":
             self._body(v)
-        elif v in self.graphs:
-            self.graphs[v].replay()
         else:
-            graph, self.capture_seconds[v] = capture_graph(
-                lambda: self._body(v), self.device, self._pool)
-            self._pool = graph.pool()
-            self.graphs[v] = graph
+            if v not in self.graphs:
+                self.prepare(cycle, cycle + 1)
+            self.graphs[v].replay()
         self._next_row = cycle + 1
         self._count += 1
         self.have_scene, self.have_filters = v.have_scene, v.have_filters

@@ -13,8 +13,10 @@ On the card the fit runs as the JAX package's does, one device program
 per cycle: `fit` keeps params, RMSprop state and aux in the static
 buffers of an `engine.cycle_graph.CycleGraph` and runs each cycle as one
 replay of a captured CUDA graph, and the init solve replays one
-captured Adam step (`cycle_graph.init_global_poses_fused`). A capture
-that fails raises.
+captured Adam step (`cycle_graph.init_global_poses_fused`). The fit
+captures the graph of every variant its cycles run before its loop, so
+that every cycle is a replay and timed windows hold replays only. A
+capture that fails raises.
 On the CPU the same static-state bodies run eagerly.
 
 When a default process group of more than one rank is initialised (an
@@ -208,6 +210,7 @@ class Predictor:
             parsed_args.reg_velocity_coef if gap_coef is None
             else float(gap_coef))
         self.bench_window_seconds = None
+        self.capture_seconds = {}
         self.export_seconds = {}
 
     # ------------------------------------------------------------------
@@ -385,10 +388,14 @@ class Predictor:
             verbose: bool = True):
         """The stage-1 cycle loop: one `CycleGraph.replay` a cycle (a
         CUDA graph replay on the card, the static-state body on the
-        CPU). With `bench_cycles` in the args, the loop synchronizes at
-        those cycle boundaries (a boundary equal to `num_iter` marks the
-        end of the loop) and records the wall time of each window
-        between them in `bench_window_seconds`.
+        CPU). On the card the graph of every variant the loop runs is
+        captured before it (`CycleGraph.prepare`, each variant warmed up
+        on a snapshot of the state); `capture_seconds` keeps each
+        variant's (warm-up, capture) seconds (empty on the CPU). With
+        `bench_cycles` in the args, the loop synchronizes at those cycle
+        boundaries (a boundary equal to `num_iter` marks the end of the
+        loop) and records the wall time of each window between them in
+        `bench_window_seconds`: replays only.
 
         With `checkpoint_every` K > 0 it saves (params, RMSprop state)
         after every K-th cycle to `output_path`/ckpt, copied out of the
@@ -437,6 +444,8 @@ class Predictor:
         profile_dir = getattr(self.args, "profile_dir", None)
         prof = None
 
+        if mesh is None:
+            graph.prepare(start_cycle, self.num_iter)
         bench_set = set(getattr(self.args, "bench_cycles", None) or ())
         bench_marks = []
 
@@ -492,6 +501,7 @@ class Predictor:
             params = S.gather_params(params, mesh)
         else:
             aux = graph.aux()
+            self.capture_seconds = dict(graph.capture_seconds)
         self._params = params
         self._aux = aux
         return log, (self._final_scene(aux) if self.writer else None)

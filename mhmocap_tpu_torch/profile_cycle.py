@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import tempfile
 import time
 
@@ -37,17 +36,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .config import gpu_name_and_power
 from .engine import optimizer as E
 from .engine.predictor import Predictor
 from .ops.raster_cuda import RasterPlanes
 from .workload import WINDOW, bench_args, make_ts1_like_seq
-
-
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def _synced(fn):
@@ -61,7 +54,7 @@ def _synced(fn):
 def profile_cycles(warm: int, timed: int, profiled: int, report):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_cycle runs on a CUDA device")
-    report(f"device: {_smi()}; torch {torch.__version__}")
+    report(f"device: {gpu_name_and_power()}; torch {torch.__version__}")
     seq, model = make_ts1_like_seq()
     with tempfile.TemporaryDirectory() as tmp:
         pred = Predictor(seq, model, tmp, bench_args(1, None, WINDOW),

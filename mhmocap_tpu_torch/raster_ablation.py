@@ -30,6 +30,7 @@ import sys
 
 import torch
 
+from .config import gpu_name_and_power
 from .models.synthetic import make_synthetic_smpl
 from .ops import raster_cuda as RC
 from .ops.rasterizer import preorder_faces
@@ -109,9 +110,7 @@ def main(argv=None):
                          f"(log-sum max diff "
                          f"{float((lk - ref[1]).abs().max()):.2e})")
             print(lines[-1], flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = gpu_name_and_power()
     lines.append(smi)
     print(smi)
     if args.out:

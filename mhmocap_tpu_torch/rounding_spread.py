@@ -42,13 +42,12 @@ import contextlib
 import ctypes
 import os
 import statistics
-import subprocess
 import time
 
 import torch
 
 from . import eval_mupots, predict_mupots, sweep
-from .config import require_device
+from .config import gpu_name_and_power, require_device
 from .data.synthetic import generate_sequence
 from .engine import optimizer as E
 from .engine.predictor import Predictor
@@ -204,9 +203,7 @@ def main(argv=None):
         emit(f"{tree} all       min/median/max  "
              f"{summary([r for rows in by_variant.values() for r in rows])}")
     if device.type == "cuda":
-        emit(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                             "--format=csv,noheader"], capture_output=True,
-                            text=True).stdout.strip())
+        emit(gpu_name_and_power())
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

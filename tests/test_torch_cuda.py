@@ -186,12 +186,12 @@ def test_cuda_fhsog_full_frame_window(cuda_device, monkeypatch, size):
 def test_cuda_graph_replay_equals_eager(cuda_device):
     """A CycleGraph on the card (one captured graph per variant, the
     cadence shrunk to warmup 2 / filter refresh every 3, so cycles 0-6
-    run every variant) against the eager stage1_cycle_eager loop from
-    the same init: every cycle's loss and parts, the final params and
-    RMSprop state bit-identical; every cycle, a replay or a variant's
-    eager first cycle, launches each kernel once a chunk a window group
-    (counted by the kernels); the init solve's graph equals its eager
-    loop."""
+    run every variant, all captured by `prepare` before cycle 0 on a
+    snapshot of the state) against the eager stage1_cycle_eager loop
+    from the same init: every cycle's loss and parts, the final params
+    and RMSprop state bit-identical; every cycle, a replay, launches
+    each kernel once a chunk a window group (counted by the kernels);
+    the init solve's graph equals its eager loop."""
     import dataclasses
     import tempfile
     from mhmocap_tpu_torch.engine import cycle_graph as CG
@@ -218,6 +218,8 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     g = CG.CycleGraph(params, E.rmsprop_init(params), aux, m, data, coefs,
                       cfg, num_cycles=7)
     per_replay = len(cfg.window_groups) * cfg.num_chunks
+    g.prepare(0, 7)
+    assert len(g.graphs) == 4
     for c in range(7):
         TC.RasterPlanes.launches.reset()
         g.replay(c)

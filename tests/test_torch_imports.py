@@ -28,8 +28,8 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)
     import mhmocap_tpu_torch
-    from mhmocap_tpu_torch import (bench_e2e, bench_multicycle, config,
-                                   convert, decompose_jitter,
+    from mhmocap_tpu_torch import (bench, bench_e2e, bench_multicycle,
+                                   config, convert, decompose_jitter,
                                    diff_final_results,
                                    eval_mupots, io, predict_internet,
                                    predict_mupots, predict_mupots_sweep,
@@ -99,6 +99,14 @@ SCRIPT = textwrap.dedent("""
     with tempfile.TemporaryDirectory() as tmp:
         pred = predictor.Predictor(seq, model, tmp, args, device="cpu")
         pred.run(verbose=False)
+    # the port's bench on a tiny workload: bench.py's line
+    bench.make_ts1_like_seq = lambda T, N, side: workload.make_ts1_like_seq(
+        T, N, side, model=model)
+    bench.T, bench.N, bench.SIDE, bench.WINDOW = 6, 2, 64, 32
+    bench.BENCH_CYCLES = (1, 2, 3)
+    res = bench.main(["--device", "cpu"])
+    assert res["metric"] == "production_frame_cycles_per_sec"
+    assert len(res["secondary"]["window_frame_cycles_per_sec"]) == 2
     cfg = E.EngineConfig(**{{**pred.cfg.__dict__, "warmup_cycles": 0,
                              "update_filters_every": 1}})
     data = E.prepare_seq_data(seq, cfg)
@@ -184,7 +192,8 @@ SCRIPT = textwrap.dedent("""
 
 def test_port_runs_without_jax_and_host_deps():
     """Import every port module and run SMPL, the raster, the FHSOG build
-    and carve, a tiny Predictor.run, a cycle with the scene and filter
+    and carve, a tiny Predictor.run, the bench's main on a tiny
+    workload, a cycle with the scene and filter
     refreshes (and the same cycle sharded over one gloo rank), and predict_mupots (with gap_aware_temporal,
     gap_interpolate and save_visualizations) + eval_mupots +
     visualization (both modes, with captures) on a port-written tree

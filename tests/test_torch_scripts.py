@@ -210,6 +210,6 @@ def test_bench_e2e_end_to_end(monkeypatch, capsys):
                                 "--cycles", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "e2e: T=4 N=2 window=" in out and "TOTAL" in out
-    assert "e2e: loss first/last" in out
+    assert "e2e: loss first/last" in out and "e2e: set-up: init solve" in out
     assert len(res["stage1_log"]) == 2 and pred.device.type == "cpu"
     assert np.isfinite(res["stage1_optvar"]["poses_T"]).all()
