@@ -6,8 +6,9 @@ Phases (any failure raises, so the process exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
   2. build: compiles the raster kernels (ops/csrc/*.cu) with nvcc for
-     sm_90a into build/mhmocap_tpu_torch/ and prints the build time and
-     ptxas' register, spill and shared-memory report;
+     sm_90a and the host codecs (native/codecs.cpp) with g++, both into
+     build/mhmocap_tpu_torch/, and prints the compilers, the build times
+     and ptxas' register, spill and shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
      at every raster call shape of phases 4, 6, 7, 9 and 10 and of
      bench-ts1 on 4 ranks (workload.KERNEL_SHAPES: posed full-size
@@ -50,6 +51,16 @@ Phases (any failure raises, so the process exits non-zero):
      finite metrics, each tree's pck_rel against its measured floor
      (ENTRY_MIN_PCK) and, as phase 4, the raster call shapes against
      phase 3's;
+  6b. host codecs, on phase 7's tree before its fit: 2 of its 2048x2048
+     frames parsed and entropy-decoded by the native decoder and by the
+     plain Python one (`io._decode_scan`), coefficients and pixels
+     (reconstructed on the card) bit-identical, and the split of a
+     native parse (entropy decode, the rest in Python); its first
+     disparity and label PNGs unfiltered natively and by
+     `io._png_unfilter`, bit-identical; then the host parse of all its
+     frames and `load_images` over them on the host thread map, on 1
+     worker and on the map again (equal outputs): ms per frame and the
+     worker count;
   7. shipped config: writes one degraded tree (the sweep's combined
      degradation plan: crossing paths, a person leaving the frame, an
      ID switch, detection and ROMP dropout, so that stale frames exist;
@@ -208,6 +219,7 @@ def phase_device():
 
 
 def phase_build():
+    from mhmocap_tpu_torch import native
     from mhmocap_tpu_torch.ops import raster_cuda as RC
     t0 = time.time()
     lib, log = RC.build_kernels()
@@ -218,6 +230,15 @@ def phase_build():
         if any(w in line for w in ("registers", "spill", "Compiling entry")):
             print(f"[2 build] ptxas: {line.strip()}")
     RC._library()
+    cxx = native.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    t0 = time.time()
+    lib, log = native.build_library()
+    print(f"[2 build] host codecs {lib} by {cxx} ({version}) "
+          f"{' '.join(native.CXX_FLAGS)} in {time.time() - t0:.2f}s"
+          + (f": {log.strip()}" if log.strip() else ""), flush=True)
+    native._library()
     return dt
 
 
@@ -766,24 +787,143 @@ class CycleClock:
                 f"(host gap share {1 - span / cyc:.3f})")
 
 
-def phase_shipped_config(tmp):
-    """configs/predict_mupots_robust.yml, unedited, on a degraded tree."""
-    import pickle
-    from mhmocap_tpu_torch import eval_mupots, predict_mupots, sweep
+def write_robust_tree(tmp) -> str:
+    """Phase 7's degraded tree, under tmp/data; returns its TS folder."""
+    from mhmocap_tpu_torch import sweep
     from mhmocap_tpu_torch.data.synthetic import generate_sequence
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
-    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    ts_dir = os.path.join(tmp, "data", f"TS{ROBUST_TS}")
     t0 = time.time()
-    body = make_synthetic_smpl()
     generate_sequence(
-        os.path.join(data, f"TS{ROBUST_TS}"), num_frames=ROBUST_FRAMES,
-        num_people=ROBUST_PEOPLE, image_size=(ROBUST_SIDE, ROBUST_SIDE),
-        model=body, seed=7 + ROBUST_TS, mupots_gt=True,
+        ts_dir, num_frames=ROBUST_FRAMES, num_people=ROBUST_PEOPLE,
+        image_size=(ROBUST_SIDE, ROBUST_SIDE), model=make_synthetic_smpl(),
+        seed=7 + ROBUST_TS, mupots_gt=True,
         degradations=sweep.degradation_plan(ROBUST_TS, ROBUST_FRAMES))
     print(f"[7 robust] wrote TS{ROBUST_TS} ({ROBUST_PEOPLE} people, "
           f"{ROBUST_FRAMES} frames, {ROBUST_SIDE}x{ROBUST_SIDE}, degraded) "
           f"in {time.time() - t0:.1f}s", flush=True)
+    return ts_dir
+
+
+# Phase 6b: the plain Python codecs stand in for the native ones while
+# `_plain_codecs` is active (the DHT tables as `_huff_lut`'s tuples).
+CODEC_FRAMES = 2
+
+
+class _plain_codecs:
+    def __enter__(self):
+        from mhmocap_tpu_torch import io as TIO, native
+        self.saved = TIO._scan, native.png_unfilter
+
+        def scan(segments, comps, frame, tables, restart_interval):
+            luts = [{th: (tuple(t[0].tolist()), tuple(t[1].tolist()))
+                     for (tc, th), t in tables.items() if tc == k}
+                    for k in (0, 1)]
+            TIO._decode_scan(segments, comps, frame, *luts, restart_interval)
+        TIO._scan, native.png_unfilter = scan, TIO._png_unfilter
+        return self
+
+    def __exit__(self, *exc):
+        from mhmocap_tpu_torch import io as TIO, native
+        TIO._scan, native.png_unfilter = self.saved
+
+
+def _timed_parse(data):
+    """io._parse_jpeg(data) with the codecs in place, its scans' entropy
+    decode timed apart: (frame, s, entropy decode s)."""
+    from mhmocap_tpu_torch import io as TIO
+    scan, secs = TIO._scan, [0.0]
+
+    def timed(*args):
+        t = time.perf_counter()
+        scan(*args)
+        secs[0] += time.perf_counter() - t
+    TIO._scan = timed
+    try:
+        t0 = time.perf_counter()
+        frame = TIO._parse_jpeg(data)
+        return frame, time.perf_counter() - t0, secs[0]
+    finally:
+        TIO._scan = scan
+
+
+def phase_codecs(ts_dir):
+    """The host codecs against their plain versions on phase 7's tree,
+    and load_images on the thread map and on 1 worker."""
+    import glob
+    from mhmocap_tpu_torch import io as TIO
+    from mhmocap_tpu_torch.data.ingestion import load_images
+    paths = sorted(glob.glob(os.path.join(ts_dir, "images", "*.jpg")))
+    fails = []
+    for p in paths[:CODEC_FRAMES]:
+        with open(p, "rb") as f:
+            data = f.read()
+        nat, t_nat, s_nat = _timed_parse(data)
+        with _plain_codecs():
+            ref, t_ref, s_ref = _timed_parse(data)
+        same = all(a.coefs.dtype == b.coefs.dtype
+                   and np.array_equal(a.coefs, b.coefs)
+                   for a, b in zip(nat.components, ref.components))
+        pix = [TIO._reconstruct([fr], "cuda") for fr in (nat, ref)]
+        same_pix = torch.equal(*pix)
+        print(f"[6b codecs] {os.path.basename(p)} ({len(data)} bytes, "
+              f"{nat.height}x{nat.width}): coefficients "
+              f"{'bit-identical' if same else 'DIFFER'}, pixels "
+              f"{'bit-identical' if same_pix else 'DIFFER'}; native parse "
+              f"{1e3 * t_nat:.1f} ms (entropy decode {1e3 * s_nat:.1f} ms, "
+              f"the rest in Python, which holds the GIL: marker walk, "
+              f"unstuffing, headers, coefficient arrays "
+              f"{1e3 * (t_nat - s_nat):.1f} ms); plain Python parse "
+              f"{t_ref:.3f} s (entropy decode {1e3 * s_ref:.1f} ms)",
+              flush=True)
+        if not (same and same_pix):
+            fails.append(f"{p}: native and plain JPEG decode differ")
+    for sub in ("DPT_large_monodepth", "Mask2Former_Instances"):
+        p = sorted(glob.glob(os.path.join(ts_dir, sub, "*.png")))[0]
+        t0 = time.perf_counter()
+        nat = TIO.read_png(p)
+        t_nat = time.perf_counter() - t0
+        with _plain_codecs():
+            ref = TIO.read_png(p)
+        same = nat.dtype == ref.dtype and np.array_equal(nat, ref)
+        print(f"[6b codecs] {sub}/{os.path.basename(p)} {nat.dtype} "
+              f"{nat.shape}: native and plain PNG "
+              f"{'bit-identical' if same else 'DIFFER'}; native read "
+              f"{1e3 * t_nat:.1f} ms", flush=True)
+        if not same:
+            fails.append(f"{p}: native and plain PNG read differ")
+    # the pool, 1 worker, the pool
+    outs, pool = {}, TIO.HOST_WORKERS
+    for workers in (pool, 1, pool):
+        saved, TIO.HOST_WORKERS = TIO.HOST_WORKERS, workers
+        try:
+            t0 = time.perf_counter()
+            TIO._host_map(TIO._read_jpeg_file, paths)
+            t_host = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            outs[workers] = load_images(paths, 0.125, device="cuda")
+            t_load = time.perf_counter() - t0
+        finally:
+            TIO.HOST_WORKERS = saved
+        print(f"[6b codecs] workers={workers}: host parse and entropy "
+              f"decode {1e3 * t_host / len(paths):.1f} ms per frame; "
+              f"load_images {1e3 * t_load / len(paths):.1f} ms per frame "
+              f"({t_load:.3f} s for {len(paths)} frames at {ROBUST_SIDE}x"
+              f"{ROBUST_SIDE} -> {outs[workers].shape[1:3]})", flush=True)
+    if not np.array_equal(outs[1], outs[pool]):
+        fails.append("load_images differs between the thread map and 1 "
+                     "worker")
+    if fails:
+        raise AssertionError("codecs: " + "; ".join(fails))
+
+
+def phase_shipped_config(tmp):
+    """configs/predict_mupots_robust.yml, unedited, on the degraded tree
+    write_robust_tree wrote under tmp."""
+    import pickle
+    from mhmocap_tpu_torch import eval_mupots, predict_mupots
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
     RasterPlanes.launches.reset()
     t0 = time.time()
     with CycleClock() as clock:
@@ -1578,6 +1718,7 @@ def main():
         main_launches = phase_main_path(os.path.join(tmp, "main"))
         phase_reference(os.path.join(tmp, "ref"))
         entry_launches = phase_entry_points(os.path.join(tmp, "entry"))
+        phase_codecs(write_robust_tree(os.path.join(tmp, "robust")))
         robust_launches = phase_shipped_config(os.path.join(tmp, "robust"))
         phase_checkpoint(os.path.join(tmp, "ckpt"))
         fhsog_launches = phase_visualization_fhsog(

@@ -4,7 +4,8 @@ capture), held module by module against the JAX package.
 Module names mirror `mhmocap_tpu` so that every function has an obvious
 counterpart. The package imports torch and numpy only; the raster
 kernels under `ops/csrc/` are compiled with nvcc at first use on a
-CUDA device.
+CUDA device, and the host codecs of `io.py` (`native/codecs.cpp`) with
+g++ at first use, on the CPU and on the card alike.
 
 The JAX package runs its SMPL, camera and loss contractions at
 `Precision.HIGHEST`; TF32 is switched off here so that float32 matmuls

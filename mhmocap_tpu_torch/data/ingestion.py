@@ -10,7 +10,8 @@ valid frame; optionally One-Euro-smooths the 2D poses forward and
 backward.
 
 The images and label maps are decoded by `mhmocap_tpu_torch.io` (no
-PIL, no OpenCV). The batched array work (JPEG reconstruction, resizes,
+PIL, no OpenCV; its native codecs, files on the JAX package's thread
+map `_host_map`). The batched array work (JPEG reconstruction, resizes,
 disparity post-processing, label morphology, the SMPL joints of the
 assignment, One-Euro) runs as torch on `device`; the per-frame
 bookkeeping (JSON, Hungarian assignment, the assignment loops) stays in
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import require_device
-from ..io import read_jpegs, read_png
+from ..io import _host_map, read_jpegs, read_png
 from ..ops.cameras import (focal_from_fov, fov_from_focal,
                            weak_perspective_projection)
 from ..ops.image import postprocess_dispmap, resize_bicubic, resize_nearest
@@ -59,8 +60,9 @@ def load_images(paths: List[str], resize_factor: float,
                 device="cpu") -> np.ndarray:
     """Bicubic-resized RGB frames -> (T, H, W, 3) uint8; the sizes are
     int(round(resize_factor * side)) as the JAX loader's. Frames are
-    decoded and resized IMAGE_BLOCK at a time, so only one block is
-    held at full resolution."""
+    decoded (the files of a block on the host thread map) and resized
+    IMAGE_BLOCK at a time, so only one block is held at full
+    resolution."""
     blocks = []
     for i in range(0, len(paths), IMAGE_BLOCK):
         stack = np.stack(read_jpegs(paths[i:i + IMAGE_BLOCK], device), axis=0)
@@ -81,7 +83,7 @@ def load_disparity_maps(paths: List[str], image_size: Tuple[int, int],
     size are resized (bicubic, in float32) to `image_size` (W, H) before
     the per-frame min-max normalization; the post-processing runs in
     blocks of DISP_BLOCK frames on `device`."""
-    raw = np.stack([read_png(p) for p in paths], axis=0)
+    raw = np.stack(_host_map(read_png, paths), axis=0)
     stack = raw.astype(np.float32)
     if stack.shape[1:3] != tuple(image_size)[::-1]:
         # PIL resizes the integer PNG modes to integers: round and clamp
@@ -115,7 +117,7 @@ def load_segmentation_maps(paths: List[str], image_size: Tuple[int, int],
     nearest-neighbour resize; the instance erosion starts with an
     erode/dilate-agreement pass so touching instances don't fuse; the
     background mask is eroded independently."""
-    stack = np.stack([read_png(p) for p in paths], axis=0)
+    stack = np.stack(_host_map(read_png, paths), axis=0)
     inst = torch.as_tensor(stack, device=device)
     if stack.shape[1:3] != tuple(image_size)[::-1]:
         inst = resize_nearest(inst, image_size)

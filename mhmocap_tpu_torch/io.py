@@ -9,11 +9,14 @@ the GPU has no PIL, so the port reads and writes its images itself:
   bit (palette images give their indices, 16-bit grayscale uint16).
 * JPEG read: baseline and extended sequential Huffman, 8-bit, grayscale
   or YCbCr, sampling 4:4:4, 4:2:2 or 4:2:0, restart markers. The entropy
-  decode is a table-driven host loop; dequantisation, the 8x8 IDCT (one
-  batched float64 matmul), libjpeg's "fancy" chroma upsampling and its
-  fixed-point YCbCr->RGB conversion run as batched torch ops on the given
-  device. libjpeg (PIL) uses an integer IDCT instead, so pixels differ
-  from PIL's by a level or two (bounds in tests/test_torch_codecs.py).
+  decode is a table-driven host loop in C++ (`native/codecs.cpp`, held
+  bit for bit to its plain Python version `_decode_scan`), files parsed
+  and decoded on a thread pool (`_host_map`); dequantisation, the 8x8
+  IDCT (one batched float64 matmul), libjpeg's "fancy" chroma
+  upsampling and its fixed-point YCbCr->RGB conversion run as batched
+  torch ops on the given device. libjpeg (PIL) uses an integer IDCT
+  instead, so pixels differ from PIL's by a level or two (bounds in
+  tests/test_torch_codecs.py).
 * JPEG write: RGB at 4:2:0 (PIL's default) with libjpeg's fixed-point
   colour conversion and downsampling, the IJG quality scaling of the
   Annex K tables and the Annex K Huffman tables. It emits PIL's exact
@@ -25,6 +28,9 @@ the GPU has no PIL, so the port reads and writes its images itself:
   libjpeg's near half steps, which moves decoded pixels by 6-10 levels
   at q=92 (up to 16 at q=75) from PIL's file, beyond the decoder's
   bound of 3.
+* The PNG row unfilter runs in C++ too (`native/codecs.cpp`; plain
+  version `_png_unfilter`). The plain versions are the tests' reference;
+  no path falls back to them.
 * `io_mkdir` and `save_image`, the JAX module's two helpers: mkdir -p,
   and an image array written as PNG or JPEG by its file suffix.
 """
@@ -32,14 +38,35 @@ the GPU has no PIL, so the port reads and writes its images itself:
 from __future__ import annotations
 
 import functools
+import os
 import re
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from . import native
+
+# threads of `_host_map`, the JAX package's min(16, cpu_count)
+HOST_WORKERS = min(16, os.cpu_count() or 4)
+
+
+def _host_map(fn, items):
+    """Order-preserving threaded map for per-file host decoding, the
+    JAX package's `data/ingestion._host_map` (after the reference's
+    DataLoader(num_workers=4)): the native codecs and zlib release the
+    GIL, so files decode in parallel on HOST_WORKERS threads. A single
+    item runs inline."""
+    items = list(items)
+    if len(items) <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(HOST_WORKERS) as ex:
+        return list(ex.map(fn, items))
+
 
 # ---------------------------------------------------------------------------
 # PNG
@@ -133,8 +160,8 @@ def read_png(path: str) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < h * (rowbytes + 1):
         raise ValueError(f"{path}: truncated PNG image data")
-    rows = _png_unfilter(raw[:h * (rowbytes + 1)], h, rowbytes,
-                         max(1, bits // 8))
+    rows = native.png_unfilter(raw[:h * (rowbytes + 1)], h, rowbytes,
+                               max(1, bits // 8))
     if depth == 16:
         return rows.view(">u2").astype(np.uint16).reshape(h, w)
     if depth < 8:
@@ -262,6 +289,15 @@ def _huff_lut(counts: bytes, symbols: bytes):
     return tuple(sym.tolist()), tuple(length.tolist())
 
 
+@functools.lru_cache(maxsize=64)
+def _huff_lut_array(counts: bytes, symbols: bytes) -> np.ndarray:
+    """`_huff_lut` as the native decoder's (2, 65536) int32 table
+    (symbols, code lengths), read-only since every caller shares it."""
+    lut = np.array(_huff_lut(counts, symbols), np.int32)
+    lut.flags.writeable = False
+    return lut
+
+
 # ---------------------------------------------------------------------------
 # JPEG read
 # ---------------------------------------------------------------------------
@@ -382,6 +418,23 @@ def _decode_scan(segments, comps, frame, dc_luts, ac_luts,
             raise ValueError("JPEG entropy data overrun")
 
 
+def _scan(segments, comps, frame, tables, restart_interval):
+    """Entropy-decode one scan with the native decoder, on the MCU grid
+    of `_decode_scan`; `tables` maps (class, id), class 0 for DC and 1
+    for AC, to the table's `_huff_lut_array`."""
+    hmax = max(c.h for c in frame.components)
+    vmax = max(c.v for c in frame.components)
+    if len(comps) == 1:
+        c = comps[0][0]
+        grid = (_ceil(_ceil(frame.width * c.h, hmax), 8),
+                _ceil(_ceil(frame.height * c.v, vmax), 8))
+    else:
+        grid = (_ceil(frame.width, 8 * hmax), _ceil(frame.height, 8 * vmax))
+    native.jpeg_decode_scan(
+        segments, [(c.coefs, c.h, c.v, dct, act) for c, dct, act in comps],
+        tables, len(comps) != 1, grid, restart_interval)
+
+
 _MARKER = re.compile(rb"\xff[\xd0-\xd7]")
 
 
@@ -389,7 +442,7 @@ def _parse_jpeg(data: bytes) -> _JpegFrame:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     frame = _JpegFrame()
-    dc_luts, ac_luts = {}, {}
+    tables = {}
     restart_interval = 0
     pos = 2
     while pos < len(data):
@@ -428,8 +481,8 @@ def _parse_jpeg(data: bytes) -> _JpegFrame:
                 tc, th = body[i] >> 4, body[i] & 15
                 counts = list(body[i + 1:i + 17])
                 syms = body[i + 17:i + 17 + sum(counts)]
-                (ac_luts if tc else dc_luts)[th] = _huff_lut(bytes(counts),
-                                                             syms)
+                tables[int(tc != 0), th] = _huff_lut_array(bytes(counts),
+                                                           syms)
                 i += 17 + sum(counts)
         elif marker == 0xDB:                    # DQT
             i = 0
@@ -471,8 +524,7 @@ def _parse_jpeg(data: bytes) -> _JpegFrame:
                 break
             segments = [s.replace(b"\xff\x00", b"\xff")
                         for s in _MARKER.split(data[pos:end])]
-            _decode_scan(segments, comps, frame, dc_luts, ac_luts,
-                         restart_interval)
+            _scan(segments, comps, frame, tables, restart_interval)
             pos = end
         # APPn, COM and the rest carry nothing the decoder needs
     if not frame.components or frame.components[0].coefs is None:
@@ -547,13 +599,16 @@ def _reconstruct(frames: List[_JpegFrame], device) -> torch.Tensor:
     return _ycc_to_rgb(*planes).to(torch.uint8)
 
 
+def _read_jpeg_file(path: str) -> _JpegFrame:
+    with open(path, "rb") as f:
+        return _parse_jpeg(f.read())
+
+
 def read_jpegs(paths: Sequence[str], device="cpu") -> List[np.ndarray]:
-    """Decode JPEG files; frames of one geometry share one batched
-    reconstruction on `device`. Returns uint8 (H, W, 3) or (H, W)."""
-    frames = []
-    for p in paths:
-        with open(p, "rb") as f:
-            frames.append(_parse_jpeg(f.read()))
+    """Decode JPEG files: each parsed and entropy-decoded on the host
+    thread map, then the frames of one geometry reconstructed in one
+    batch on `device`. Returns uint8 (H, W, 3) or (H, W), in order."""
+    frames = _host_map(_read_jpeg_file, paths)
     out: List[np.ndarray] = [None] * len(frames)
     groups = {}
     for i, fr in enumerate(frames):

@@ -58,6 +58,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..native import build_dir as _build_dir
+
 STRIP_H = 8
 FACE_CHUNK = 128
 TAB_ROWS = 16
@@ -426,10 +428,6 @@ def raster_bwd_plain(tab, dz, dlk, amin, win: int, inv_blur: float,
 # ---------------------------------------------------------------------------
 # Build, load and launch
 # ---------------------------------------------------------------------------
-
-def _build_dir() -> Path:
-    return _CSRC.parents[2] / "build" / "mhmocap_tpu_torch"
-
 
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
