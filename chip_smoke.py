@@ -5,10 +5,12 @@
 Phases (any failure raises, so the process exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the raster kernels (ops/csrc/*.cu) with nvcc for
-     sm_90a and the host codecs (native/codecs.cpp) with g++, both into
-     build/mhmocap_tpu_torch/, and prints the compilers, the build times
-     and ptxas' register, spill and shared-memory report;
+  2. build: compiles the raster kernels (ops/csrc/raster_*.cu) and the
+     fill-in kernel (ops/csrc/fillin.cu) with nvcc for sm_90a and the
+     host codecs (native/codecs.cpp) with g++, the three compilers
+     started at once, all into build/mhmocap_tpu_torch/, and prints the
+     compilers, the build times and ptxas' register, spill and
+     shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
      at every raster call shape of phases 4, 6, 7, 9 and 10 and of
      bench-ts1 on 4 ranks (workload.KERNEL_SHAPES: posed full-size
@@ -26,6 +28,17 @@ Phases (any failure raises, so the process exits non-zero):
      pairs among them whose coverage term is not 0 and those the
      forward's cull keeps, and each kernel's bound on that work and its
      share of it;
+  3b. fill-in: the fill-in kernel (ops/csrc/fillin.cu) against its
+     plain version (ops.image.fillin_plain) at its three call shapes,
+     built from bench-ts1: the scene rebuild's map and mask (k 7,
+     256x256), a 128-frame ingestion block of its disparity maps (k 7)
+     and the final scene image's three channels (k 11): x, m and the
+     pixels each round filled bit for bit, two launches bit-identical,
+     the calls of each shape captured in a CUDA graph whose replay must
+     equal the eager launches and count the same calls, rounds and live
+     rounds; prints the live rounds of each call (read after it, off
+     the path), the kernel's, the plain version's and an all-valid
+     mask's ms (CUDA events) and the bound and share;
   4. main path: Predictor.run on the production workload (T=201, N=3,
      256x256, raster_window=160 -> windows 160/128/112) for 52 cycles,
      each one CUDA graph replay (phases 5-9 run the Predictor on the
@@ -129,6 +142,12 @@ Phases (any failure raises, so the process exits non-zero):
      that held a warm-up or a capture would read 35-75% slow), and the
      raster launches of its bare cycle's warm-up and 3 replays, the
      fit's 4 warm-ups and its 76 replays.
+Phases 4, 6, 7 and 10-12 zero the fill-in kernel's counts (calls, round
+launches, live rounds, counted on the card) with the raster counters
+and read them after each run: every run must call it, with 64 round
+launches a call; phase 10 holds each rank's counts a cycle to the one
+process's, phase 11 the graphs' to the eager loop's (the same calls
+stopping at the same round), only in the scene-rebuild cycles.
 The last three lines are a JSON object with one entry per kernel,
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
@@ -219,27 +238,42 @@ def phase_device():
 
 
 def phase_build():
+    """The raster kernels, the fill-in kernel (nvcc) and the host codecs
+    (g++), each compiler started at once on a thread of its own."""
+    from concurrent.futures import ThreadPoolExecutor
     from mhmocap_tpu_torch import native
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops import raster_cuda as RC
-    t0 = time.time()
-    lib, log = RC.build_kernels()
-    dt = time.time() - t0
-    print(f"[2 build] {lib} in {dt:.2f}s"
-          + ("" if log else " (already built)"), flush=True)
-    for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry")):
-            print(f"[2 build] ptxas: {line.strip()}")
+
+    def timed(build):
+        t0 = time.time()
+        lib, log = build()
+        return lib, log, time.time() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(timed, build) for name, build in (
+            ("raster", RC.build_kernels), ("fill-in", FC.build_kernels),
+            ("codecs", native.build_library))}
+        built = {name: job.result() for name, job in jobs.items()}
+    for name in ("raster", "fill-in"):
+        lib, log, dt = built[name]
+        print(f"[2 build] {name} kernels {lib} in {dt:.2f}s"
+              + ("" if log else " (already built)"), flush=True)
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
+                print(f"[2 build] ptxas: {line.strip()}")
     RC._library()
+    FC._library()
     cxx = native.compiler()
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True, check=True).stdout.splitlines()[0]
-    t0 = time.time()
-    lib, log = native.build_library()
+    lib, log, dt = built["codecs"]
     print(f"[2 build] host codecs {lib} by {cxx} ({version}) "
-          f"{' '.join(native.CXX_FLAGS)} in {time.time() - t0:.2f}s"
+          f"{' '.join(native.CXX_FLAGS)} in {dt:.2f}s"
           + (f": {log.strip()}" if log.strip() else ""), flush=True)
     native._library()
-    return dt
+    return built["raster"][2]
 
 
 def _raster_calls(cfg):
@@ -257,6 +291,29 @@ def _check_raster_calls(cfg, where, calls=None):
         raise AssertionError(f"{where}: raster calls {sorted(calls - checked)}"
                              f" were not held to the plain version in "
                              f"phase 3 ({sorted(checked)})")
+
+
+def _reset_counts():
+    """Zero the raster and fill-in kernels' launch counters."""
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    RasterPlanes.launches.reset()
+    FC.launches.reset()
+
+
+def _fillin_counts(where):
+    """The fill-in's counts since the last reset (calls, round launches,
+    live rounds), counted by the kernel; a path must have called it, with
+    FILLIN_ITERS round launches a call, of which at least the first is
+    live."""
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
+    got = dict(FC.launches)
+    print(f"[{where}] fill-in kernel: {got['calls']} calls, {got['rounds']} "
+          f"round launches, {got['live']} live rounds", flush=True)
+    if not (got["calls"] > 0 and got["rounds"] == FILLIN_ITERS * got["calls"]
+            and got["calls"] <= got["live"] <= got["rounds"]):
+        raise AssertionError(f"{where}: fill-in counts {got}")
+    return got
 
 
 def phase_kernels():
@@ -435,6 +492,227 @@ def _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear, fwd, bwd):
                              "their eager launches")
 
 
+# Phase 3b: the fill-in kernel (ops/csrc/fillin.cu) against its plain
+# version at its three call shapes, bit for bit. Every call on the paths
+# runs FILLIN_ITERS (fillin_masked's default max_iters) round launches.
+# Its work, for the bound, is counted on each call's data by
+# _fillin_work; the rounds counted are the live ones (the last of them,
+# where the loop ended, reads the state and fills nothing).
+FILLIN_ITERS = 64
+FILLIN_TILE = 16    # csrc/fillin.cu TILE: a round block's tile side
+
+
+def _tile_sums(t, k):
+    """(own, span): for (B, H, W) t, each round block's sum of t over
+    its tile and over the span it stages (the tile and a halo of
+    k // 2, zero outside the frame), both (B, tiles_y, tiles_x)."""
+    import torch.nn.functional as F
+    T, pad = FILLIN_TILE, k // 2
+    H, W = t.shape[-2:]
+    ey, ex = -(-H // T) * T - H, -(-W // T) * T - W
+    t = t.to(torch.float64)[:, None]
+    own = F.avg_pool2d(F.pad(t, (0, ex, 0, ey)), T) * T * T
+    S = T + 2 * pad
+    span = F.avg_pool2d(F.pad(t, (pad, ex + pad, pad, ey + pad)), S,
+                        stride=T) * S * S
+    return own[:, 0].round(), span[:, 0].round()
+
+
+def _fillin_work(x, m, k, filled):
+    """(operations, bytes) of one fill-in call on (x, m), counted from
+    the state at the start of each live round (`fillin_plain` run that
+    many rounds; `filled`, the pixels each round filled, has one entry a
+    live round). Bytes: the init reads m and writes fr (8 a pixel); a
+    live round reads the fr of every pixel of the frames whose mask
+    holds no NaN (4 a pixel); a block whose tile holds a hole also
+    stages the fr of its halo and the x of each valid pixel of its span
+    (4 each, inside the frame); each pixel a round fills writes x, m and
+    fr (12). The wrapper's copies of x and m are not counted.
+    Operations: a validity test per window slot at each hole, and at
+    each pixel filled the selection of two order statistics (about 2
+    compares a slot) and the mean (2)."""
+    from mhmocap_tpu_torch.ops.image import fillin_plain
+    H, W = m.shape[-2:]
+    frames = ~torch.isnan(m.reshape(-1, H, W)).flatten(1).any(1)
+    ops, nbytes = 0, 8 * m.numel()
+    if not bool(frames.any()):
+        return ops, nbytes
+    own_px, span_px = _tile_sums(torch.ones_like(m.reshape(-1, H, W)[:1]),
+                                 k)
+    for r, f in enumerate(filled):
+        mr = m if r == 0 else fillin_plain(x, m, k, r)[1]
+        mr = mr.reshape(-1, H, W)[frames]
+        hole = mr < 0.5
+        hole_tile = _tile_sums(hole, k)[0] > 0
+        staged = (span_px - own_px) + _tile_sums(mr > 0.5, k)[1]
+        nbytes += (4 * mr.numel() + 4 * int((staged * hole_tile).sum())
+                   + 12 * f)
+        ops += int(hole.sum()) * k * k + f * (2 * k * k + 2)
+    return ops, nbytes
+
+
+def _recording_fillin(calls):
+    """A stand-in for ops.image.fillin_masked that records the (x, mask,
+    k) of each call before it runs the wrapper."""
+    from mhmocap_tpu_torch.ops import image
+    wrapper = image.fillin_masked
+
+    def record(x, mask, filter_size, max_iters=FILLIN_ITERS):
+        calls.append((x.clone(), mask.clone(), filter_size))
+        return wrapper(x, mask, filter_size, max_iters)
+
+    return record
+
+
+def _fillin_inputs(dev):
+    """{shape: [(x, mask, k), ...]}, the calls a path makes at each of
+    the fill-in's three call shapes, from bench-ts1: the scene rebuild
+    (update_scene at the init params: its bilateral-filtered map and
+    outlier mask, k 7, 256x256), the ingestion post-process of a
+    128-frame block of its disparity maps (min-max normalized per frame
+    as ingestion does, k 7), and the final scene image (the mask
+    Predictor._final_scene builds from its background masks under three
+    channels of seeded values in [0, 255], since bench-ts1's images are
+    black; k 11, one call a channel)."""
+    from mhmocap_tpu_torch.data.ingestion import DISP_BLOCK
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.ops import image
+    from mhmocap_tpu_torch.workload import (WINDOW, bench_args,
+                                            make_ts1_like_seq)
+    seq, model = make_ts1_like_seq()
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = Predictor(seq, model, tmp, bench_args(1, None, WINDOW),
+                         device=dev)
+    params, _, _ = E.init_params(pred.model, seq.pose2d, seq.poses_smpl,
+                                 seq.betas_smpl, seq.cam["K"], pred.cfg)
+    data = E.prepare_seq_data(seq, pred.cfg, dev)
+    disp = seq.depths[:DISP_BLOCK]
+    lo = disp.min(axis=(1, 2), keepdims=True)
+    disp = (disp - lo) / np.maximum(disp.max(axis=(1, 2), keepdims=True)
+                                    - lo, np.float32(1e-8))
+    calls, wrapper = [], image.fillin_masked
+    image.fillin_masked = _recording_fillin(calls)
+    try:
+        E.update_scene(params, data, pred.cfg)
+        image.postprocess_dispmap(torch.as_tensor(disp, device=dev),
+                                  minz=1, maxz=100, fillin_ksize=7)
+    finally:
+        image.fillin_masked = wrapper
+    mask = torch.as_tensor(
+        (~np.all(seq.backmasks <= 0.5, axis=0)).astype(np.float32),
+        device=dev)
+    rgb = np.random.RandomState(3).randint(0, 256, (3,) + mask.shape)
+    return {"scene": calls[:1], "ingestion": calls[1:],
+            "final_scene": [(torch.as_tensor(c, dtype=torch.float32,
+                                             device=dev), mask, 11)
+                            for c in rgb]}
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _live_rounds(per_round):
+    """The rounds a call ran past the stop test: up to and including
+    the first that filled nothing."""
+    zero = (per_round == 0).nonzero()
+    return int(zero[0]) + 1 if len(zero) else len(per_round)
+
+
+def phase_fillin():
+    """Phase 3b: the fill-in kernel against its plain version at the
+    three call shapes, a graph replay against the eager launch, and
+    times beside the bound."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
+    from mhmocap_tpu_torch.ops.image import fillin_plain
+    from mhmocap_tpu_torch.workload import cuda_ms
+    dev = torch.device("cuda")
+    t0 = time.time()
+    shapes = _fillin_inputs(dev)
+    print(f"[3b fill-in] inputs from bench-ts1 in {time.time() - t0:.1f}s: "
+          + ", ".join(f"{name} {len(c)} x {tuple(c[0][0].shape)} k {c[0][2]}"
+                      for name, c in shapes.items()), flush=True)
+    out, worst = {}, 0.0
+    for name, calls in shapes.items():
+        fails = []
+        ops = nbytes = 0
+        rounds, eager = [], []
+        for x, m, k in calls:
+            kx, km, per_round = FC.fillin_cuda(x, m, k)
+            again = FC.fillin_cuda(x, m, k)
+            px, pm, filled = fillin_plain(x, m, k)
+            torch.cuda.synchronize()
+            eager.append((kx, km, per_round))
+            if not all(_same_bits(a, b) for a, b in zip(again, eager[-1])):
+                fails.append("two launches differ")
+            if not (_same_bits(kx, px) and _same_bits(km, pm)):
+                fails.append("kernel and plain version differ")
+            diff = torch.where(kx == px, torch.zeros_like(kx),
+                               (kx - px).abs())
+            worst = max(worst, float(torch.nan_to_num(diff, nan=0.0).max()))
+            want = filled + [0] * (FILLIN_ITERS - len(filled))
+            if per_round.tolist() != want:
+                fails.append(f"pixels filled a round {per_round.tolist()} "
+                             f"!= the plain version's {filled}")
+            rounds.append(_live_rounds(per_round))
+            o, b = _fillin_work(x, m, k, filled)
+            ops, nbytes = ops + o, nbytes + b
+        # the calls captured in one graph; its replay must equal the
+        # eager launches and count what they counted
+        got = []
+        graph, _ = capture_graph(
+            lambda: got.__setitem__(slice(None), [
+                FC.fillin_cuda(x, m, k) for x, m, k in calls]), dev)
+        for r in got:
+            for a in r:
+                a.fill_(-7)
+        FC.launches.reset()
+        graph.replay()
+        torch.cuda.synchronize()
+        counts = dict(FC.launches)
+        same = all(_same_bits(a, b) for r, e in zip(got, eager)
+                   for a, b in zip(r, e))
+        want = {"calls": len(calls), "rounds": FILLIN_ITERS * len(calls),
+                "live": sum(rounds)}
+        if not same or counts != want:
+            fails.append(f"graph replay bit-identical {same}, counts "
+                         f"{counts} (want {want})")
+
+        def kernel():
+            for x, m, k in calls:
+                FC.fillin_cuda(x, m, k)
+
+        def plain():
+            for x, m, k in calls:
+                fillin_plain(x, m, k)
+
+        def empty():
+            for x, m, k in calls:
+                FC.fillin_cuda(x, torch.ones_like(m), k)
+
+        t = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 2),
+             "empty_ms": cuda_ms(empty, 20)}
+        bound_ms, bound_by = _bound(ops, nbytes)
+        out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                         rounds=rounds, calls=len(calls))
+        print(f"[3b fill-in] {name}: {len(calls)} call(s) of "
+              f"{tuple(calls[0][0].shape)} k {calls[0][2]}, live rounds "
+              f"{rounds} of {FILLIN_ITERS} launched; kernel = plain bit for "
+              f"bit and graph replay = eager launch: {not fails}; kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, a call on a "
+              f"full mask (1 live round) {t['empty_ms']:.4f} ms; work "
+              f"{ops / 1e6:.2f} M ops and {nbytes / 1e6:.2f} MB, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), share "
+              f"{bound_ms / t['ms']:.4f}", flush=True)
+        if fails:
+            raise AssertionError(f"fill-in {name}: " + "; ".join(fails))
+    out["max_abs_err"] = worst
+    return out
+
+
 INIT_KEYS = {"scale_factor", "poses_T", "poses_smpl", "betas_smpl",
              "valid_smpl", "min_z", "max_z", "scene_depth", "scene_img",
              "scene_mask", "pose2d"}
@@ -472,13 +750,14 @@ def phase_main_path(out_dir):
           f"{cfg.person_windows}, V={model.num_vertices} "
           f"F={model.num_faces}", flush=True)
     _check_raster_calls(cfg, "4 main")
-    RasterPlanes.launches.reset()
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out = pred.run(verbose=True)
     torch.cuda.synchronize()
     run_s = time.time() - t0
     launches = dict(RasterPlanes.launches)
+    fill = _fillin_counts("4 main")
     losses = pred.stage1_losses
     per_cycle = np.asarray(pred.bench_window_seconds)
     print(f"[4 main] launches {launches}; losses cycle 0 {losses[0]:.6f} "
@@ -524,7 +803,7 @@ def phase_main_path(out_dir):
     if st1["poses_T"].shape != (T, 3, 1, 3) or not np.isfinite(
             st1["poses_T"]).all() or st1["scene_depth"] is None:
         raise AssertionError("optvar_stage1.pkl content is wrong")
-    return launches
+    return launches, fill
 
 
 # Each of the 2 entries of the xscale gradient sums the scale's effect
@@ -678,9 +957,9 @@ def phase_entry_points(tmp):
         os.path.join(tmp, "predict.yml"),
         sweep.sweep_config(data, ENTRY_CYCLES, post_process_depth=True,
                            bench_cycles=list(range(30, ENTRY_CYCLES + 1))))
-    launches = {}
+    launches, fill = {}, {}
     for ts, _ in ENTRY_TREES:
-        RasterPlanes.launches.reset()
+        _reset_counts()
         t0 = time.time()
         with CycleClock() as clock:
             summary = predict_mupots.main(
@@ -689,6 +968,7 @@ def phase_entry_points(tmp):
             torch.cuda.synchronize()
         wall = time.time() - t0
         launches[ts] = dict(RasterPlanes.launches)
+        fill[ts] = _fillin_counts(f"6 entry TS{ts}")
         _check_raster_calls(summary["engine_config"], f"6 entry TS{ts}")
         ing = summary["ingest_seconds"]
         cyc = np.asarray(summary["cycle_seconds"])
@@ -719,7 +999,7 @@ def phase_entry_points(tmp):
     if low:
         raise AssertionError(f"(TS, pck_rel) {low} below the floors "
                              f"{ENTRY_MIN_PCK}")
-    return launches
+    return launches, fill
 
 
 # Phase 7: the robust profile's shipped config on a degraded tree. The
@@ -924,7 +1204,7 @@ def phase_shipped_config(tmp):
     from mhmocap_tpu_torch import eval_mupots, predict_mupots
     from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
-    RasterPlanes.launches.reset()
+    _reset_counts()
     t0 = time.time()
     with CycleClock() as clock:
         summary = predict_mupots.main(
@@ -934,6 +1214,7 @@ def phase_shipped_config(tmp):
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(RasterPlanes.launches)
+    fill = _fillin_counts("7 robust")
     cfg = summary["engine_config"]
     _check_raster_calls(cfg, "7 robust")
     cyc = clock.seconds()[29:]       # cycles [30, 250)
@@ -987,7 +1268,7 @@ def phase_shipped_config(tmp):
         {k: v[-1] for k, v in final.items()}), flush=True)
     if not all(np.isfinite(v).all() for v in final.values()):
         raise AssertionError(f"non-finite metrics: {final}")
-    return launches
+    return launches, fill
 
 
 def phase_checkpoint(tmp):
@@ -1299,6 +1580,7 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
     this process without one."""
     from mhmocap_tpu_torch import convert
     from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     from mhmocap_tpu_torch.parallel import spmd as S
     dev = torch.device(device)
@@ -1337,13 +1619,14 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
         grads = S.gather_params(grads, mesh)
     out = {"loss0": float(loss), "parts0": parts.cpu().numpy(),
            "grads0": [g.cpu().numpy() for g in grads], "seconds": [],
-           "launches": [], "losses": [], "calls": sorted(_raster_calls(cfg)),
+           "launches": [], "fillin": [], "losses": [],
+           "calls": sorted(_raster_calls(cfg)),
            "local_chunks": cfg.padded_frames // (spec["ranks"] * cfg.chunk),
            "cfg": (cfg.chunk, cfg.padded_frames, cfg.person_windows)}
     del aux0, grads
     for c in cycles:
         sync()
-        RasterPlanes.launches.reset()
+        _reset_counts()
         t0 = time.time()
         if mesh is None:
             params, state, aux, loss, _ = E.stage1_cycle_eager(
@@ -1354,6 +1637,7 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
         sync()
         out["seconds"].append(time.time() - t0)
         out["launches"].append(dict(RasterPlanes.launches))
+        out["fillin"].append(dict(FC.launches))
         out["losses"].append(float(loss))
     if mesh is not None:
         out["replicated"] = [params.betas.cpu().numpy(),
@@ -1438,6 +1722,14 @@ def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
                   if not v <= SHARD_BOUNDS["params"]]
         if any(n != want for n in got["launches"]):
             fails.append(f"rank {r} raster launches {got['launches']}")
+        # every rank rebuilds the whole scene, as the one process does,
+        # and its fill-in stops at the same round
+        print(f"[10 sharded] rank {r} fill-in counts per cycle "
+              f"{got['fillin']} (one process {single['fillin']})",
+              flush=True)
+        if got["fillin"] != single["fillin"] or not all(
+                n["calls"] for n in got["fillin"]):
+            fails.append(f"rank {r} fill-in counts {got['fillin']}")
         if got["calls"] != single["calls"] or got["cfg"] != single["cfg"]:
             fails.append(f"rank {r} layout {got['cfg']} {got['calls']}")
         for a, b in zip(got["replicated"], ranks[0]["replicated"]):
@@ -1453,8 +1745,10 @@ def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
         print(f"[10 sharded] nvidia-smi: {smi_line()}", flush=True)
     if fails:
         raise AssertionError("sharded vs one process: " + "; ".join(fails))
-    return {k: sum(n[k] for g in ranks for n in g["launches"])
-            for k in ("fwd", "bwd")}
+    return ({k: sum(n[k] for g in ranks for n in g["launches"])
+             for k in ("fwd", "bwd")},
+            {k: sum(n[k] for g in ranks for n in g["fillin"])
+             for k in ranks[0]["fillin"][0]})
 
 
 # Phase 11: bench-ts1 eagerly and through the graphs from one init, over
@@ -1466,19 +1760,21 @@ GRAPH_BENCH = {"Ks": (5, 15), "meas": 15, "reps": 1}
 
 
 def _run_cycles(step, n):
-    """(seconds, launches) of cycles 0..n-1, each run by step(c) between
-    synchronizations with the raster launches counted from 0."""
+    """(seconds, raster launches, fill-in counts) of cycles 0..n-1, each
+    run by step(c) between synchronizations with the counts from 0."""
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
-    secs, launches = [], []
+    secs, launches, fill = [], [], []
     for c in range(n):
         torch.cuda.synchronize()
-        RasterPlanes.launches.reset()
+        _reset_counts()
         t0 = time.perf_counter()
         step(c)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         launches.append(dict(RasterPlanes.launches))
-    return np.asarray(secs), launches
+        fill.append(dict(FC.launches))
+    return np.asarray(secs), launches, fill
 
 
 def _span(secs):
@@ -1551,9 +1847,10 @@ def phase_graphs():
             parts.append(part)
 
         torch.cuda.reset_peak_memory_stats()
-        secs, launches = _run_cycles(step, GRAPH_CYCLES)
+        secs, launches, fill = _run_cycles(step, GRAPH_CYCLES)
         p, st, _ = state["s"]
-        return dict(secs=secs, launches=launches, losses=torch.stack(losses),
+        return dict(secs=secs, launches=launches, fill=fill,
+                    losses=torch.stack(losses),
                     parts=torch.stack(parts), state=(p, st.nu, st.trace),
                     count=int(st.count),
                     peak=torch.cuda.max_memory_allocated())
@@ -1568,7 +1865,7 @@ def phase_graphs():
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     variants = []
-    g_secs, g_launches = _run_cycles(
+    g_secs, g_launches, g_fill = _run_cycles(
         lambda c: variants.append(graph.replay(c)), GRAPH_CYCLES)
     g_peak = torch.cuda.max_memory_allocated()
     st = graph.state
@@ -1604,6 +1901,18 @@ def phase_graphs():
           f"{want}); cycles off {bad}", flush=True)
     if bad:
         fails.append(f"raster launches {bad}")
+    # the fill-in of every scene rebuild (cycles 30-52) stops at the same
+    # round in the graphs as in the eager loop, and runs nowhere else
+    scene = [c for c, n in enumerate(g_fill) if n["calls"]]
+    print(f"[11 graphs] fill-in counts a cycle, counted by the kernel: "
+          f"eager {eager['fill'][-1]}, graph {g_fill[-1]}; cycles with a "
+          f"call {scene[0] if scene else None}..{scene[-1] if scene else None}"
+          f"; live rounds a call "
+          f"{sorted({n['live'] // max(n['calls'], 1) for n in g_fill if n['calls']})}",
+          flush=True)
+    if g_fill != eager["fill"] or scene != [
+            c for c in range(GRAPH_CYCLES) if E.refresh_flags(c, cfg)[0]]:
+        fails.append(f"fill-in counts graph {g_fill} eager {eager['fill']}")
     for v, (warm, cap) in graph.capture_seconds.items():
         print(f"[11 graphs] variant {tuple(int(x) for x in v)}: warm-up "
               f"{warm:.3f}s, capture and instantiation {cap:.3f}s",
@@ -1659,6 +1968,7 @@ def phase_graphs():
         raise AssertionError("graphs: " + "; ".join(fails))
     a, b = GRAPH_TIMED
     return ({k: sum(n[k] for n in g_launches) for k in want},
+            {k: sum(n[k] for n in g_fill) for k in g_fill[0]},
             {"replay_median": float(np.median(g_secs[a:b])),
              "per_cycle": per_cycle, "variants": len(graph.graphs)})
 
@@ -1676,13 +1986,14 @@ def phase_bench(graphs):
     from mhmocap_tpu_torch import bench
     from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     fails = []
-    RasterPlanes.launches.reset()
+    _reset_counts()
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         res = bench.main([])
     wall = time.time() - t0
     launches = dict(RasterPlanes.launches)
+    fill = _fillin_counts("12 bench")
     for line in buf.getvalue().splitlines():
         print(f"[12 bench] {line}", flush=True)
     wins = np.asarray(res["secondary"]["window_frame_cycles_per_sec"])
@@ -1706,7 +2017,7 @@ def phase_bench(graphs):
         fails.append(f"bench launches {launches} != {want}")
     if fails:
         raise AssertionError("bench: " + "; ".join(fails))
-    return launches
+    return launches, fill
 
 
 def main():
@@ -1714,23 +2025,28 @@ def main():
     phase_device()
     phase_build()
     errs, timing = phase_kernels()
+    fillin = phase_fillin()
     with tempfile.TemporaryDirectory() as tmp:
-        main_launches = phase_main_path(os.path.join(tmp, "main"))
+        runs = [phase_main_path(os.path.join(tmp, "main"))]
         phase_reference(os.path.join(tmp, "ref"))
-        entry_launches = phase_entry_points(os.path.join(tmp, "entry"))
+        entry_launches, entry_fill = phase_entry_points(
+            os.path.join(tmp, "entry"))
+        runs += [(entry_launches[ts], entry_fill[ts]) for ts in entry_launches]
         phase_codecs(write_robust_tree(os.path.join(tmp, "robust")))
-        robust_launches = phase_shipped_config(os.path.join(tmp, "robust"))
+        runs.append(phase_shipped_config(os.path.join(tmp, "robust")))
         phase_checkpoint(os.path.join(tmp, "ckpt"))
         fhsog_launches = phase_visualization_fhsog(
             tmp, os.path.join(tmp, "robust", "out", f"TS{ROBUST_TS}"))
-    shard_launches = phase_sharded()
-    graph_launches, graphs = phase_graphs()
-    bench_launches = phase_bench(graphs)
-    # the launches of every main-path run, each counted from 0
-    launches = {k: main_launches[k] + robust_launches[k] + fhsog_launches[k]
-                + shard_launches[k] + graph_launches[k] + bench_launches[k]
-                + sum(v[k] for v in entry_launches.values())
-                for k in main_launches}
+    runs.append(phase_sharded())
+    graph_launches, graph_fill, graphs = phase_graphs()
+    runs.append((graph_launches, graph_fill))
+    runs.append(phase_bench(graphs))
+    # the launches of every main-path run, each counted from 0 (the
+    # FHSOG build runs the forward kernel only, and no fill-in)
+    launches = {k: fhsog_launches[k] + sum(r[k] for r, _ in runs)
+                for k in fhsog_launches}
+    fill = {k: sum(f[k] for _, f in runs) for k in runs[0][1]}
+    print(f"fill-in over the main paths: {fill}", flush=True)
     # times and bounds at B=29, window 160; no single PyTorch call
     # computes either function, so neither has a library time
     t160 = timing[29, 160]
@@ -1744,6 +2060,15 @@ def main():
          "library_ms": None, "pairs": t160["pairs"],
          "live_pairs": t160["live"]}
         for k, line in (("fwd", 515), ("bwd", 650))]
+    # the fill-in's numbers at the scene rebuild's call (once a cycle);
+    # its launches are the round launches (FILLIN_ITERS a call)
+    kernels.append(dict(
+        fillin["scene"], name="fillin", route="cuda",
+        source="mhmocap_tpu_torch/ops/csrc/fillin.cu",
+        replaces="mhmocap_tpu/ops/image.py:56", launches=fill["rounds"],
+        max_abs_err=fillin["max_abs_err"], library_ms=None,
+        calls=fill["calls"], live_rounds=fill["live"],
+        shapes={k: v for k, v in fillin.items() if k != "max_abs_err"}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

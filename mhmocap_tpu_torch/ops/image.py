@@ -2,7 +2,8 @@
 
 Port of `mhmocap_tpu/ops/image.py`: masked window and temporal medians
 (the mean of elements (n-1)//2 and n//2 of the sorted valid values, not
-`torch.median`'s lower element), iterative masked fill-in, Sobel
+`torch.median`'s lower element), iterative masked fill-in (a CUDA
+kernel on the card, `fillin_cuda.py`, beside its plain version), Sobel
 magnitude with reflect padding, the bilateral filter, the Sobel
 outlier mask, `postprocess_dispmap` and `postprocess_depthmap`, and the
 two resizes of the ingestion in PIL's semantics. The window ops work on
@@ -17,6 +18,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .fillin_cuda import fillin_cuda
 from .morphology import erode
 
 _BIG = 3.4e38
@@ -42,30 +44,60 @@ def _median_of_sorted(sorted_vals, n, dim):
 
 def masked_window_median(x, mask, k: int):
     """Median over the valid pixels of each k*k window -> (median (H, W),
-    any_valid (H, W)); windows without a valid pixel give 0."""
+    any_valid (H, W)); windows without a valid pixel give 0. The values
+    are ordered as JAX's sort orders them: a stable sort in which -0.0
+    equals 0.0 and every NaN comes after +inf, each value keeping its
+    bits. The sort runs on a key whose zeros are +0.0 and whose NaNs are
+    one NaN, so that a sort that orders by bits (the card's radix sort)
+    gives that order too."""
     vals = _unfold(x, k, 0.0)
     ok = _unfold(mask.to(x.dtype), k, 0.0) > 0.5
     n = torch.sum(ok, dim=-1)
-    sorted_vals = torch.sort(
-        torch.where(ok, vals, torch.full_like(vals, _BIG)), dim=-1).values
-    med = _median_of_sorted(sorted_vals, n, -1)
+    vals = torch.where(ok, vals, torch.full_like(vals, _BIG))
+    key = torch.where(vals == 0, torch.zeros_like(vals), vals)
+    key = torch.where(torch.isnan(key), torch.full_like(key, float("nan")),
+                      key)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    med = _median_of_sorted(torch.gather(vals, -1, order), n, -1)
     any_valid = n > 0
     return torch.where(any_valid, med, torch.zeros_like(med)), any_valid
 
 
-def fillin_masked(x, mask, filter_size: int, max_iters: int = 64):
-    """Fill masked-out pixels with the window median of valid
-    neighbours, `max_iters` rounds. A round changes nothing once the
-    mask is full (or no window holds a valid pixel), so the fixed count
-    gives the JAX while-loop's result without reading the mask back to
-    the host."""
-    xv = x.to(torch.float32)
-    m = mask.to(torch.float32)
+def fillin_plain(x, mask, filter_size: int, max_iters: int = 64):
+    """The plain version of the fill-in kernel -> (x, m, filled): rounds
+    of `masked_window_median` until a round fills no pixel or
+    `max_iters` rounds ran; filled lists the pixels each round filled.
+    The stop reads each round's count on the host. It gives the JAX
+    while-loop's result: a round that fills nothing leaves the state as
+    it was, and the loop's condition (mask not full, below max_iters)
+    stops there or later. A frame whose mask holds a NaN runs no round,
+    as in JAX (min(m) is NaN there)."""
+    xv = x.to(torch.float32, copy=True)
+    m = mask.to(torch.float32, copy=True)
+    live = ~torch.isnan(m).flatten(-2).any(-1)[..., None, None]
+    filled = []
     for _ in range(max_iters):
         med, ok = masked_window_median(xv, m, filter_size)
-        newly = (m < 0.5) & ok
+        newly = (m < 0.5) & ok & live
+        filled.append(int(newly.sum()))
+        if not filled[-1]:
+            break
         xv = torch.where(newly, med, xv)
         m = torch.where(newly, torch.ones_like(m), m)
+    return xv, m, filled
+
+
+def fillin_masked(x, mask, filter_size: int, max_iters: int = 64):
+    """Fill masked-out pixels with the window median of valid
+    neighbours until a round fills nothing or after `max_iters` rounds
+    -> (x, m) float32. CUDA tensors launch the kernel
+    (`fillin_cuda.fillin_cuda`, which stops on the card and reads
+    nothing back), CPU tensors run the plain version (`fillin_plain`)."""
+    x, mask = torch.broadcast_tensors(x, mask)
+    if x.is_cuda:
+        xv, m, _ = fillin_cuda(x, mask, filter_size, max_iters)
+    else:
+        xv, m, _ = fillin_plain(x, mask, filter_size, max_iters)
     return xv, m
 
 

@@ -31,11 +31,12 @@ design answers). This module holds what surrounds them:
   * `RasterPlanes`, the autograd.Function: on a CUDA tensor it
     launches the kernels (or raises), on a CPU tensor it runs the
     plain version;
-  * `LaunchCounts` (`RasterPlanes.launches`): each kernel counts its own
-    launches on the device, so a launch recorded in a CUDA graph counts
-    at every replay;
-  * the build-and-load helper: nvcc for sm_90a into build/ at first
-    use, bound with ctypes.
+  * `RasterPlanes.launches` (`cuda_lib.LaunchCounts`): each kernel
+    counts its own launches on the device (raster_common.cuh
+    count_launch), so a launch recorded in a CUDA graph counts at every
+    replay;
+  * the load of the library (`cuda_lib.build_library`: nvcc for sm_90a
+    into build/ at first use), bound with ctypes.
 
 Table layout (shared with csrc/raster_common.cuh): tab (B, 16, F_pad)
 f32, rows 3*b + r = coefficient r (x, y, const) of plane b (edges 0-2,
@@ -46,19 +47,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from collections.abc import Mapping
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..native import build_dir as _build_dir
+from .cuda_lib import LaunchCounts, build_library, stream_ptr
 
 STRIP_H = 8
 FACE_CHUNK = 128
@@ -76,12 +72,8 @@ X_CULL = 111.0
 # the forward kernel: a warp owns 8 columns of a cell, all its rows
 FWD_WARP_COLS = 8
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("raster_fwd.cu", "raster_bwd.cu")
 _HEADERS = ("raster_common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 
 
 def _n_xb(win: int) -> int:
@@ -429,36 +421,11 @@ def raster_bwd_plain(tab, dz, dlk, amin, win: int, inv_blur: float,
 # Build, load and launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the raster kernels are built with "
-                       "the CUDA toolkit's nvcc (CUDA_HOME or PATH)")
-
-
 def build_kernels() -> Tuple[Path, str]:
     """Compile csrc/ into a shared library under build/ unless a library
     of the same sources and flags is already there. Returns (path,
     nvcc's output); raises with the compiler's output if it fails."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _HEADERS + _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    out_dir = _build_dir()
-    lib = out_dir / f"libmhmocap_raster_{h.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+    return build_library("raster", _SOURCES, _HEADERS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -505,56 +472,6 @@ def _check_window(win: int):
                          f"forward's 65535 grid rows")
 
 
-def _stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-class LaunchCounts(Mapping):
-    """{"fwd": n, "bwd": n}: the raster kernels' launches, counted by the
-    kernels: the first thread of each launch adds one to its kernel's
-    word of a per-device int64 counter (raster_common.cuh count_launch),
-    so a launch recorded in a CUDA graph counts at each replay, when it
-    runs, and the capture counts nothing. Reading synchronizes with the
-    counters' devices; `reset` zeroes them on their current streams."""
-
-    NAMES = ("fwd", "bwd")
-
-    def __init__(self):
-        self._counters: Dict[torch.device, torch.Tensor] = {}
-
-    def pointer(self, name: str, device) -> int:
-        """The device address of `name`'s counter on `device`, made at
-        the first eager launch there (a capture may not allocate it)."""
-        device = torch.device(device)
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        c = self._counters.get(device)
-        if c is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("the raster launch counter is made by "
-                                   "an eager launch, not inside a capture")
-            c = self._counters[device] = torch.zeros(
-                len(self.NAMES), dtype=torch.int64, device=device)
-        return c.data_ptr() + c.element_size() * self.NAMES.index(name)
-
-    def reset(self):
-        for c in self._counters.values():
-            c.zero_()
-
-    def __getitem__(self, name: str) -> int:
-        i = self.NAMES.index(name)
-        return sum(int(c[i]) for c in self._counters.values())
-
-    def __iter__(self):
-        return iter(self.NAMES)
-
-    def __len__(self) -> int:
-        return len(self.NAMES)
-
-    def __repr__(self) -> str:
-        return repr(dict(self))
-
-
 def raster_fwd_cuda(tab, agg, win: int, inv_blur: float, znear: float):
     """Launch the forward kernel -> (zmin, logkeep, amin) (B, win, win).
     The kernel finds each cell's chunks from agg itself and writes every
@@ -581,7 +498,7 @@ def _launch_fwd(tab, agg, win: int, inv_blur: float, znear: float,
         tab.data_ptr(), agg.data_ptr(), zmin.data_ptr(), logkeep.data_ptr(),
         amin.data_ptr(), B, F_pad, win, _n_xb(win), float(inv_blur),
         float(znear), RasterPlanes.launches.pointer("fwd", dev),
-        _stream_ptr(dev))
+        stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster forward kernel launch failed: CUDA "
                            f"error {err}")
@@ -595,7 +512,7 @@ def log1p_shortcut_mismatches(device) -> int:
     if there are none."""
     bad = torch.zeros(1, dtype=torch.int64, device=device)
     err = _library().mhmocap_raster_log1p_check(bad.data_ptr(),
-                                                _stream_ptr(device))
+                                                stream_ptr(device))
     if err != 0:
         raise RuntimeError(f"log1pf check kernel launch failed: CUDA "
                            f"error {err}")
@@ -624,7 +541,7 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
         tab.data_ptr(), agg.data_ptr(), dz.data_ptr(), dlk.data_ptr(),
         amin.data_ptr(), dplanes.data_ptr(), B, F_pad, win, _n_xb(win),
         float(inv_blur), RasterPlanes.launches.pointer("bwd", dev),
-        _stream_ptr(dev))
+        stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -650,7 +567,7 @@ class RasterPlanes(torch.autograd.Function):
     (`LaunchCounts`).
     """
 
-    launches = LaunchCounts()
+    launches = LaunchCounts(("fwd", "bwd"))
 
     @staticmethod
     def forward(ctx, planes, bbox, lo_y, hi_y, ok_sil, ok_depth, win,

@@ -19,7 +19,9 @@ scene rebuild runs in every measured cycle) it reports:
     time (the sum of kernel, copy and memset times; one stream, so they
     do not overlap) as a share of the profiled wall and of the
     unprofiled cycle, the device launches per cycle, the raster kernel
-    launches, the top device rows and the top host ops by self time.
+    launches, the fill-in kernel's counts (calls, round launches, live
+    rounds), the top device rows, the rows of the fill-in kernel and of
+    every sort, and the top host ops by self time.
 
 The report goes to stdout and, with --out, to that file as well.
 """
@@ -39,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 from .config import gpu_name_and_power
 from .engine import optimizer as E
 from .engine.predictor import Predictor
+from .ops import fillin_cuda as FC
 from .ops.raster_cuda import RasterPlanes
 from .workload import WINDOW, bench_args, make_ts1_like_seq
 
@@ -91,6 +94,7 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
         f"{k} {_synced(fn):.4f} s" for k, fn in phases.items()))
 
     RasterPlanes.launches.reset()
+    FC.launches.reset()
     first = cycle
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -110,11 +114,17 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
            f"unprofiled cycle (idle "
            f"{100 - 100 * busy_cycle / (1e3 * per_cycle):.1f}%)")
     report(f"device launches {n_dev} ({n_dev / profiled:.0f} per cycle); "
-           f"raster kernel launches {dict(RasterPlanes.launches)}")
+           f"raster kernel launches {dict(RasterPlanes.launches)}; fill-in "
+           f"kernel {dict(FC.launches)}")
     report("top device rows:")
     for key, ms, cnt in dev[:15]:
         report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
                f"{key[:90]}")
+    report("device rows of the fill-in kernel and of sorts:")
+    for key, ms, cnt in dev:
+        if "mhmocap_fill" in key or "sort" in key.lower():
+            report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
+                   f"{key[:90]}")
     host = sorted(((k.key, k.self_cpu_time_total / 1e3, k.count) for k in ka
                    if k.device_type == DeviceType.CPU), key=lambda r: -r[1])
     report(f"host self time {sum(r[1] for r in host):.1f} ms over "

@@ -32,6 +32,8 @@ import torch
 
 from .config import gpu_name_and_power
 from .models.synthetic import make_synthetic_smpl
+from .native import build_dir
+from .ops import cuda_lib
 from .ops import raster_cuda as RC
 from .ops.rasterizer import preorder_faces
 from .workload import (KERNEL_SHAPES, TIMED_SHAPES, cuda_ms,
@@ -49,7 +51,7 @@ EDITS["neither"] = EDITS["no_cull"] + EDITS["one_group"]
 
 def variant_source(name: str) -> str:
     """raster_fwd.cu with the variant's edits."""
-    src = (RC._CSRC / "raster_fwd.cu").read_text()
+    src = (cuda_lib.CSRC / "raster_fwd.cu").read_text()
     for pat, rep in EDITS.get(name, []):
         src, n = re.subn(pat, rep, src)
         if n != 1:
@@ -61,13 +63,13 @@ def build(name: str):
     """Start nvcc on the variant (and the backward, so that the library
     has the C interface of csrc/); returns the library path and the
     process."""
-    out = RC._build_dir() / "ablation" / name
+    out = build_dir() / "ablation" / name
     out.mkdir(parents=True, exist_ok=True)
     for f in RC._HEADERS + RC._SOURCES:
-        (out / f).write_bytes((RC._CSRC / f).read_bytes())
+        (out / f).write_bytes((cuda_lib.CSRC / f).read_bytes())
     (out / "raster_fwd.cu").write_text(variant_source(name))
     lib = out / "libmhmocap_raster.so"
-    cmd = [RC._nvcc(), *RC.NVCC_FLAGS, "-o", str(lib),
+    cmd = [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
            *[str(out / f) for f in RC._SOURCES]]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)

@@ -1,5 +1,5 @@
-"""GPU tests of the port's raster kernels (marked `cuda`; they skip
-without an NVIDIA GPU).
+"""GPU tests of the port's raster kernels and its fill-in kernel (marked
+`cuda`; they skip without an NVIDIA GPU).
 
 This file imports torch and the port only, so it also runs where JAX is
 not installed. On a machine with a card:
@@ -239,3 +239,73 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     for x, y in zip(CG.init_global_poses_fused(m, *args),
                     E.init_global_poses(m, *args)):
         assert torch.equal(x, y)
+
+
+def _fillin_case(case):
+    """(x, mask, k) on the CPU: holes at k = 7 over a batch, the k = 11
+    scene channels, the cap binding at k = 3, and special values."""
+    rng = np.random.RandomState(len(case))
+    if case == "batch_k7":
+        x = rng.rand(5, 96, 80).astype(np.float32)
+        m = (rng.rand(5, 96, 80) > 0.3).astype(np.float32)
+        m[1, 20:60, 10:70] = 0
+        m[2] = 0
+        m[3] = 1
+        m[4, 0, 0] = np.nan
+        return x, m, 7
+    if case == "channels_k11":
+        x = (255 * rng.rand(3, 64, 72)).astype(np.float32)
+        m = np.ones((3, 64, 72), np.float32)
+        m[:, 10:50, 20:60] = 0
+        return x, m, 11
+    if case == "cap_k3":
+        x = rng.rand(150, 150).astype(np.float32)
+        m = np.zeros((150, 150), np.float32)
+        m[:3] = 1
+        return x, m, 3
+    pool = np.array([0.0, -0.0, 1.0, np.inf, -np.inf, np.nan, 3.4e38],
+                    np.float32)
+    x = pool[rng.randint(0, len(pool), (40, 40))]
+    m = (rng.rand(40, 40) > 0.4).astype(np.float32)
+    m[rng.rand(40, 40) < 0.05] = 0.5
+    return x, m, 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["batch_k7", "channels_k11", "cap_k3",
+                                  "special"])
+def test_cuda_fillin_matches_plain(cuda_device, case):
+    """The fill-in kernel against its plain version on the card: x and
+    m bit for bit (int32 views), the pixels each round filled equal to
+    the plain version's counts (0 from its stop on), one call and
+    max_iters round launches counted, and a CUDA graph replay of the
+    call bit-identical to the eager launch."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    from mhmocap_tpu_torch.ops import fillin_cuda as FC
+    from mhmocap_tpu_torch.ops.image import fillin_masked, fillin_plain
+    x, m, k = (t(a).to(cuda_device) if isinstance(a, np.ndarray) else a
+               for a in _fillin_case(case))
+    px, pm, filled = fillin_plain(x, m, k)
+    FC.launches.reset()
+    kx, km, per_round = FC.fillin_cuda(x, m, k)
+    counts = dict(FC.launches)
+    assert counts["calls"] == 1 and counts["rounds"] == 64
+    assert counts["live"] == min(len(filled), 64)
+    for a, b in ((kx, px), (km, pm)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = filled + [0] * (64 - len(filled))
+    assert per_round.cpu().tolist() == want
+    wx, wm = fillin_masked(x, m, k)
+    assert torch.equal(wx.view(torch.int32), kx.view(torch.int32))
+    out = {}
+
+    def body():
+        out["r"] = FC.fillin_cuda(x, m, k)
+
+    graph, _ = capture_graph(body, cuda_device)
+    for a in out["r"]:
+        a.fill_(-7)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out["r"], (kx, km, per_round)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

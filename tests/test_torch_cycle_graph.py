@@ -31,6 +31,7 @@ from mhmocap_tpu_torch.data.ingestion import SequenceArrays as TSeq
 from mhmocap_tpu_torch.engine import cycle_graph as CG
 from mhmocap_tpu_torch.engine import optimizer as TE
 from mhmocap_tpu_torch.engine import predictor as TPr
+from mhmocap_tpu_torch.ops import image as TI
 
 CYCLES = 7
 CADENCE = dict(CFG, warmup_cycles=2, update_filters_every=3)
@@ -276,6 +277,34 @@ class HostGuard(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def _plain_fillin_rounds(monkeypatch):
+    """The rounds each call of the plain fill-in runs, recorded. It is
+    the fill-in's CPU path and reads each round's count on the host
+    (one int a round) to stop; on the card the kernel stops on the
+    device and reads nothing."""
+    rounds, plain = [], TI.fillin_plain
+
+    def counted(*args, **kw):
+        out = plain(*args, **kw)
+        rounds.append(len(out[2]))
+        return out
+
+    monkeypatch.setattr(TI, "fillin_plain", counted)
+    return rounds
+
+
+def _fixed_round_fillin(x, mask, filter_size, max_iters=64):
+    """A stand-in for the plain fill-in that runs two of its rounds and
+    has no stop, so that it reads nothing back to the host."""
+    xv, m = x.to(torch.float32, copy=True), mask.to(torch.float32, copy=True)
+    for _ in range(2):
+        med, ok = TI.masked_window_median(xv, m, filter_size)
+        newly = (m < 0.5) & ok
+        xv = torch.where(newly, med, xv)
+        m = torch.where(newly, torch.ones_like(m), m)
+    return xv, m, []
+
+
 def _guarded(monkeypatch, fn):
     """The guarded calls `fn` makes; torch.from_numpy, which no mode
     sees, is wrapped for the call."""
@@ -298,7 +327,10 @@ def test_bodies_are_capture_safe(body, monkeypatch, variant):
     knobs so that every branch runs, and the init solve) builds no
     tensor from host data and reads nothing back (torch.tensor,
     as_tensor, from_numpy, item, tolist, cpu, numpy, bool, int,
-    float)."""
+    float), but for the plain fill-in's stop (one int a round, the CPU
+    path only; on the card the fill-in kernel stops on the device), which
+    the scene variants run. With the plain fill-in swapped for a stand-in
+    that has no stop, a body reads nothing at all."""
     tm, data, cfg, params, aux = _setup(body, "robust")
     if variant == "init":
         tm, args, kw_opt = _init_inputs(body)
@@ -307,12 +339,16 @@ def test_bodies_are_capture_safe(body, monkeypatch, variant):
             CG.init_global_poses_fused(tm, *args, **kw_opt)
     else:
         g = CG.CycleGraph(params, TE.rmsprop_init(params), aux, tm, data,
-                          TE.default_coefs(), cfg, num_cycles=2)
+                          TE.default_coefs(), cfg, num_cycles=3)
 
         def run():
             CG.cycle_body(g.state, variant, tm, data, TE.default_coefs(),
                           cfg, True)
     run()
+    rounds = _plain_fillin_rounds(monkeypatch)
+    assert _guarded(monkeypatch, run) == ["__int__"] * sum(rounds)
+    assert bool(rounds) == (variant != "init" and variant.do_scene)
+    monkeypatch.setattr(TI, "fillin_plain", _fixed_round_fillin)
     assert _guarded(monkeypatch, run) == []
 
 
