@@ -129,12 +129,23 @@ Phases (any failure raises, so the process exits non-zero):
      and parts, the final params and RMSprop state bit-identical, 21
      forward and 21 backward launches a cycle on both paths, counted by
      the kernels (every graph cycle a replay); prints prepare's seconds
-     (each variant's warm-up and capture, and the snapshots), the graph
-     pool's bytes, both runs' peak memory, the
+     (each variant's warm-up and capture, and the snapshots), both
+     runs' peak memory, the
      seconds a cycle of both paths over [30, 52) and at cycle 50 (a
      second replay of its graph), the device-busy share of a replayed
      cycle (torch.profiler, and CUDA events against the host clock), and
      `bench_multicycle`'s loop / graph / K=5 / K=15 cadence;
+ 11b. marks: the phase-mark kernel (ops/csrc/phase_mark.cu) captured
+     into all four variants' graphs at bench-ts1's shape (7 chunks, 19
+     slots) from phase 11's init, cycles 0-52: after each replay the
+     ring row the kernel read from the device counter is filled, the
+     other rows unchanged or -1, the slots copied from their
+     predecessor (the phases a variant skips) those of the plain
+     version (the CPU path of `PhaseMarks`, called in the same order),
+     the rest increasing; a mark at a row outside the ring changes
+     nothing; one launch counted a mark; the state bit-identical to
+     phase 11's unmarked graphs; the groups' ms; a mark's time in a
+     graph beside a one-element fill's (the launch that bounds it);
  12. bench: `python -m mhmocap_tpu_torch.bench`'s main at full size
      (bench.py's workload and line; its JSON and `#` lines printed with
      a "[12 bench]" prefix): three finite windows, each window's
@@ -148,7 +159,8 @@ and read them after each run: every run must call it, with 64 round
 launches a call; phase 10 holds each rank's counts a cycle to the one
 process's, phase 11 the graphs' to the eager loop's (the same calls
 stopping at the same round), only in the scene-rebuild cycles.
-The last three lines are a JSON object with one entry per kernel,
+The last three lines are a JSON object with one entry per kernel (the
+phase mark's launches are those of phase 11b),
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
 """
@@ -474,7 +486,7 @@ def _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear, fwd, bwd):
         out["bwd"] = RC.raster_bwd_cuda(tab, agg, dz, dlk, fwd[2], win,
                                         inv_blur)
 
-    graph, _ = capture_graph(body, tab.device)
+    graph = capture_graph(body, tab.device)
     for t in (*out["fwd"], out["bwd"]):
         t.fill_(-7)
     RC.RasterPlanes.launches.reset()
@@ -663,7 +675,7 @@ def phase_fillin():
         # the calls captured in one graph; its replay must equal the
         # eager launches and count what they counted
         got = []
-        graph, _ = capture_graph(
+        graph = capture_graph(
             lambda: got.__setitem__(slice(None), [
                 FC.fillin_cuda(x, m, k) for x, m, k in calls]), dev)
         for r in got:
@@ -1272,7 +1284,8 @@ def phase_shipped_config(tmp):
 
 
 def phase_checkpoint(tmp):
-    """A tiny sequence: 4 cycles unbroken (profiler trace of cycle 2)
+    """A tiny sequence: 4 cycles unbroken (profiler trace of cycle 2,
+    captured with phase marks, whose ring row of cycle 2 must be filled)
     against 2 + 2 cycles resumed from a checkpoint, before cycle 30
     (the aux state, which is not saved, is still its initial value)."""
     import contextlib
@@ -1306,9 +1319,15 @@ def phase_checkpoint(tmp):
                                  whole.stage1_losses[2:])
     trace = os.path.join(trace_dir, "trace_cycle2.json")
     size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    phases = os.path.join(trace_dir, "phases_cycle2.json")
+    ring = []
+    if os.path.exists(phases):
+        with open(phases) as f:
+            ring = json.load(f)["ring_ns"]
     print(f"[8 checkpoint] {printed.strip()}; resumed vs unbroken: arrays "
           f"that differ {differ}, losses of cycles 2-3 equal {same_losses}; "
-          f"trace {trace} {size} bytes", flush=True)
+          f"trace {trace} {size} bytes; cycle 2's phase marks (device ns "
+          f"from its start) {[t - ring[0] for t in ring]}", flush=True)
     if "resumed from checkpoint at cycle 1" not in printed:
         raise AssertionError("the 4-cycle run did not resume at cycle 1")
     if differ or not same_losses:
@@ -1316,6 +1335,9 @@ def phase_checkpoint(tmp):
                              "unbroken one")
     if not size:
         raise AssertionError("profile_dir wrote no trace")
+    if not ring or ring[0] <= 0 or any(b < a for a, b in zip(ring, ring[1:])):
+        raise AssertionError(f"profile_dir's phase marks are not one filled, "
+                             f"non-decreasing row: {ring}")
 
 
 class RasterClock:
@@ -1921,11 +1943,13 @@ def phase_graphs():
     print(f"[11 graphs] prepare (4 variants before cycle 0) "
           f"{prep_s:.3f}s: warm-ups and captures {caps:.3f}s, snapshots "
           f"and restores {prep_s - caps:.3f}s", flush=True)
-    pool = graph.pool_bytes()
-    print(f"[11 graphs] graph pool "
-          f"{'not named by the allocator' if pool is None else f'{pool / 2**20:.1f} MiB'}"
-          f"; peak memory eager {eager['peak'] / 2**30:.2f} GiB, graphs "
-          f"{g_peak / 2**30:.2f} GiB", flush=True)
+    # phase 11b's reference: the unmarked graphs' cycles 0-52 and setup
+    ref = dict(losses=st.losses.clone(), parts=st.parts.clone(),
+               leaves=[t.clone() for t in CG.tree_leaves(
+                   (st.params, st.nu, st.trace, st.count))],
+               setup=(params, data, aux0, m, coefs, cfg, opt_scale))
+    print(f"[11 graphs] peak memory eager {eager['peak'] / 2**30:.2f} GiB, "
+          f"graphs {g_peak / 2**30:.2f} GiB", flush=True)
     print(f"[11 graphs] seconds a cycle: eager {_span(eager['secs'])}; "
           f"graphs {_span(g_secs)} (replays only)", flush=True)
 
@@ -1970,7 +1994,145 @@ def phase_graphs():
     return ({k: sum(n[k] for n in g_launches) for k in want},
             {k: sum(n[k] for n in g_fill) for k in g_fill[0]},
             {"replay_median": float(np.median(g_secs[a:b])),
-             "per_cycle": per_cycle, "variants": len(graph.graphs)})
+             "per_cycle": per_cycle, "variants": len(graph.graphs),
+             "ref": ref})
+
+
+# Phase 11b: marks captured back to back in one graph to time a mark,
+# and replays of it
+MARK_GRAPH = (200, 20)
+
+
+def _launch_ms(body, device):
+    """ms a launch of `body`, MARK_GRAPH[0] calls captured in one graph
+    and replayed MARK_GRAPH[1] times between CUDA events."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    per, reps = MARK_GRAPH
+    graph = capture_graph(lambda: [body() for _ in range(per)], device,
+                          name="smoke")
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize(device)
+    return a.elapsed_time(b) / (per * reps)
+
+
+def phase_marks(ref):
+    """Phase 11b: the phase-mark kernel at bench-ts1's shape (7 chunks,
+    19 slots), captured into all 4 variants' graphs from phase 11's
+    init, against its plain version (the CPU path of
+    `PhaseMarks.__call__`) run in the same order as `cycle_body` calls
+    it. After each replay: the row the kernel read from the device
+    counter is the one filled, the earlier rows are as they were and the
+    later ones -1; the slots equal to their predecessor (the phases the
+    variant skips, copied) are the plain ring's, every other slot
+    increases, and the update mark (row offset -1) lands in the cycle's
+    own row. A mark at a row outside the ring changes nothing. The
+    kernel counts one launch a mark. The losses, parts, params and
+    RMSprop state equal phase 11's unmarked graphs bit for bit. Timed:
+    a mark in a graph against torch's one-element fill (the launch,
+    which bounds it)."""
+    from mhmocap_tpu_torch.engine import cycle_graph as CG
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.ops import phase_marks as PM
+    params, data, aux0, m, coefs, cfg, opt_scale = ref["setup"]
+    dev = params.poses_T.device
+    n, K = GRAPH_CYCLES, cfg.num_chunks
+    names = PM.slot_names(K)
+    graph = CG.CycleGraph(params, E.rmsprop_init(params), aux0, m, data,
+                          coefs, cfg, opt_scale, num_cycles=n,
+                          phase_marks=True)
+    graph.prepare(0, n)
+    PM.launches.reset()
+    plain_ring = PM.make_ring(n, K, "cpu")
+    plain_cycle = torch.zeros((), dtype=torch.int64)
+    plain = PM.PhaseMarks(plain_ring, plain_cycle, K)
+    fails, want_launches, seen = [], 0, {}
+    before = graph.state.ring.cpu()
+    if not (before == -1).all():
+        fails.append("prepare left marks in the ring")
+    for c in range(n):
+        v = graph.replay(c)
+        order = graph.mark_order[v]
+        for name in order:
+            if name == "update":
+                plain_cycle.add_(1)
+                plain(name, row_offset=-1)
+            else:
+                plain(name)
+        want_launches += len(order)
+        seen.setdefault(v, order)
+        ring = graph.state.ring.cpu()
+        got, want = ring[c], plain_ring[c]
+        if not (torch.equal(ring[:c], before[:c])
+                and (ring[c + 1:] == -1).all()):
+            fails.append(f"cycle {c} wrote outside its row")
+        if not torch.equal(got[1:] == got[:-1], want[1:] == want[:-1]):
+            fails.append(f"cycle {c} ({''.join(str(int(f)) for f in v)}): "
+                         f"copied slots {(got[1:] == got[:-1]).tolist()}, "
+                         f"plain {(want[1:] == want[:-1]).tolist()}")
+        if (got <= 0).any() or (got.diff() < 0).any() or (
+                c and got[0] < before[c - 1, -1]):
+            fails.append(f"cycle {c}'s row is not filled and non-decreasing")
+        before = ring
+    counted = PM.launches["marks"]
+    # rows outside the ring: past its end (the counter now reads n) and
+    # before its start
+    graph.marks("start")
+    graph.marks("start", row_offset=-n - 1)
+    outside = torch.equal(graph.state.ring.cpu(), before)
+    total = PM.launches["marks"]
+    same = (torch.equal(graph.state.losses, ref["losses"])
+            and torch.equal(graph.state.parts, ref["parts"])
+            and all(torch.equal(a, b) for a, b in zip(
+                CG.tree_leaves((graph.state.params, graph.state.nu,
+                                graph.state.trace, graph.state.count)),
+                ref["leaves"])))
+    rows = graph.phase_rows(0, n)
+    refresh = [c for c in range(n) if E.refresh_flags(c, cfg)[1]]
+    plain_c = [c for c in range(n)
+               if c > cfg.warmup_cycles and c not in refresh]
+    groups = PM.group_ms(rows, K)
+    print(f"[11b marks] {len(seen)} variants, marks a cycle "
+          f"{ {''.join(str(int(f)) for f in v): len(o) for v, o in seen.items()} }"
+          f" of {len(names)} slots; rows that differ from the plain "
+          f"version's structure {len([f for f in fails if 'copied' in f])}"
+          f"; launches counted {counted} (want {want_launches}), two "
+          f"marks outside the ring {total - counted} and the ring "
+          f"unchanged {outside}; state bit-identical to phase 11's "
+          f"unmarked graphs {same}", flush=True)
+    print(f"[11b marks] group ms, median of plain cycles {plain_c[0]}-"
+          f"{plain_c[-1]}: " + ", ".join(
+        f"{g} {np.median(groups[g][plain_c]):.3f}" for g in PM.GROUPS)
+          + f"; refresh cycles {refresh}: " + ", ".join(
+              f"{g} {np.round(groups[g][refresh], 3).tolist()}"
+              for g in PM.GROUPS), flush=True)
+    ring1 = PM.make_ring(1, K, dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    one = torch.zeros((1,), device=dev)
+    mark = PM.PhaseMarks(ring1, zero, K)
+    mark_ms = _launch_ms(lambda: mark("start"), dev)
+    fill_ms = _launch_ms(lambda: one.zero_(), dev)
+    print(f"[11b marks] a mark in a graph {1e3 * mark_ms:.2f} us, a "
+          f"one-element fill {1e3 * fill_ms:.2f} us (the launch bound); "
+          f"{len(names) - 2} marks a plain cycle "
+          f"{1e3 * mark_ms * (len(names) - 2):.1f} us", flush=True)
+    if counted != want_launches or total - counted != 2:
+        fails.append(f"mark launches {counted} + {total - counted}, want "
+                     f"{want_launches} + 2")
+    if not outside:
+        fails.append("a mark outside the ring changed it")
+    if not same:
+        fails.append("the marked graphs' state differs from the unmarked")
+    if len(seen) != 4:
+        fails.append(f"{len(seen)} variants, want 4")
+    if fails:
+        raise AssertionError("phase marks: " + "; ".join(fails[:8]))
+    return {"launches": counted, "ms": mark_ms, "bound_ms": fill_ms,
+            "rows": n, "slots": len(names)}
 
 
 # Phase 12: a bench window's seconds a cycle may differ from phase 11's
@@ -2040,6 +2202,7 @@ def main():
     runs.append(phase_sharded())
     graph_launches, graph_fill, graphs = phase_graphs()
     runs.append((graph_launches, graph_fill))
+    marks = phase_marks(graphs.pop("ref"))
     runs.append(phase_bench(graphs))
     # the launches of every main-path run, each counted from 0 (the
     # FHSOG build runs the forward kernel only, and no fill-in)
@@ -2069,6 +2232,14 @@ def main():
         max_abs_err=fillin["max_abs_err"], library_ms=None,
         calls=fill["calls"], live_rounds=fill["live"],
         shapes={k: v for k, v in fillin.items() if k != "max_abs_err"}))
+    # the phase mark at bench-ts1's graphs (phase 11b): its structure
+    # held to the plain version's, row for row; bound by its launch
+    kernels.append(dict(
+        name="phase_mark", route="cuda",
+        source="mhmocap_tpu_torch/ops/csrc/phase_mark.cu", replaces=None,
+        launches=marks["launches"], rows_differ=0, ms=marks["ms"],
+        plain_ms=None, bound_ms=marks["bound_ms"], bound_by="launch",
+        library_ms=None, shape=[marks["rows"], marks["slots"]]))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -83,16 +83,14 @@ def bare_cycle_graph(pred: Predictor, n_meas: int = 3) -> CycleGraph:
 
 def bench_bare_cycle(pred: Predictor, n_meas: int = 3):
     """(seconds a bare cycle, set-up seconds): the bare cycle's graph
-    prepared (on the card its warm-up and capture; nothing on the CPU),
-    then n_meas replays timed by the host clock between
-    synchronizations."""
+    prepared (on the card its warm-up and capture, the span
+    "cycle_graph.prepare"; nothing on the CPU), then n_meas replays
+    timed by the host clock between synchronizations."""
     graph = bare_cycle_graph(pred, n_meas)
     dev = pred.device
-    _sync(dev)
-    t0 = time.perf_counter()
     graph.prepare(0, 1)
     _sync(dev)
-    setup_s = time.perf_counter() - t0
+    setup_s = graph.spans.seconds("cycle_graph.prepare")
     t0 = time.perf_counter()
     for _ in range(n_meas):
         graph.replay(0)

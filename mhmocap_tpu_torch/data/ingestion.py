@@ -23,7 +23,6 @@ from __future__ import annotations
 import copy
 import glob
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -37,6 +36,7 @@ from ..ops.cameras import (focal_from_fov, fov_from_focal,
 from ..ops.image import postprocess_dispmap, resize_bicubic, resize_nearest
 from ..ops.morphology import dilate_labels, erode_labels
 from ..ops.one_euro import one_euro_bidirectional
+from ..spans import Spans, span
 from .alphapose import load_tracking_results, merge_pose_streams, \
     tracks_to_array
 from .assignment import match_pose_sets, pose_distance_2d
@@ -380,6 +380,7 @@ class SequenceArrays:
         return self.cam["image_size"]
 
 
+@span("load_sequence")
 def load_sequence(
     data_root: str,
     smpl_joints_fn: Callable,
@@ -418,125 +419,128 @@ def load_sequence(
     the AlphaPose-layout joints of the assignment. A `timings` dict, if
     given, receives the seconds spent decoding files ("decode"),
     post-processing disparity and label maps ("postprocess") and
-    assigning tracks, SMPL predictions and masks ("assignment"). The
-    device is the GPU unless the caller passes device="cpu"."""
+    assigning tracks, SMPL predictions and masks ("assignment"), and
+    their sum ("total"), read from the spans "ingest.decode",
+    "ingest.postprocess" and "ingest.assignment" (inside
+    "load_sequence"). The device is the GPU unless the caller passes
+    device="cpu"."""
     device = require_device(device)
-    t_start = time.time()
-    all_names = sorted(os.path.splitext(os.path.basename(p))[0]
-                       for p in glob.glob(
-                           os.path.join(data_root, images_path,
-                                        "*.jpg")))
-    if frame_ids is not None and len(frame_ids) > 0:
-        names = [all_names[i] for i in frame_ids]
-    else:
-        names = all_names
-        frame_ids = range(len(names))
+    rec = Spans()
+    with rec, span("ingest.decode"):
+        all_names = sorted(os.path.splitext(os.path.basename(p))[0]
+                           for p in glob.glob(
+                               os.path.join(data_root, images_path,
+                                            "*.jpg")))
+        if frame_ids is not None and len(frame_ids) > 0:
+            names = [all_names[i] for i in frame_ids]
+        else:
+            names = all_names
+            frame_ids = range(len(names))
 
-    images = load_images(
-        [os.path.join(data_root, images_path, s + ".jpg") for s in names],
-        resize_factor, device=device)
-    image_size = images.shape[1:3][::-1]  # (W, H)
-    t_images = time.time()
+        images = load_images(
+            [os.path.join(data_root, images_path, s + ".jpg") for s in names],
+            resize_factor, device=device)
+        image_size = images.shape[1:3][::-1]  # (W, H)
+    with rec, span("ingest.postprocess"):
 
-    depths = load_disparity_maps(
-        [os.path.join(data_root, depth_path, s + ".png") for s in names],
-        image_size, renormalize=renormalize_depth,
-        post_process=post_process_depth, device=device)
+        depths = load_disparity_maps(
+            [os.path.join(data_root, depth_path, s + ".png") for s in names],
+            image_size, renormalize=renormalize_depth,
+            post_process=post_process_depth, device=device)
 
-    instances, backmasks = load_segmentation_maps(
-        [os.path.join(data_root, segmentation_path, s + ".png")
-         for s in names],
-        image_size, erode_segmentation_iters, erode_backmask_iters,
-        device=device)
-    t_maps = time.time()
+        instances, backmasks = load_segmentation_maps(
+            [os.path.join(data_root, segmentation_path, s + ".png")
+             for s in names],
+            image_size, erode_segmentation_iters, erode_backmask_iters,
+            device=device)
+    with rec, span("ingest.assignment"):
 
-    annot = load_tracking_results(
-        os.path.join(data_root, alphapose_path, "alphapose-results.json"),
-        coef_thr=joint_confidence_thr,
-        min_size=0.15 * min(image_size) / resize_factor)
-    if use_hrnet_pose:
-        hrnet = load_tracking_results(
-            os.path.join(data_root, hrnet_pose_path, "hrnet-results.json"),
-            coef_thr=0.2,
-            min_size=0.15 * min(image_size) / resize_factor,
-            ignore_tracking=True)
-        annot = merge_pose_streams(annot, hrnet)
+        annot = load_tracking_results(
+            os.path.join(data_root, alphapose_path, "alphapose-results.json"),
+            coef_thr=joint_confidence_thr,
+            min_size=0.15 * min(image_size) / resize_factor)
+        if use_hrnet_pose:
+            hrnet = load_tracking_results(
+                os.path.join(data_root, hrnet_pose_path, "hrnet-results.json"),
+                coef_thr=0.2,
+                min_size=0.15 * min(image_size) / resize_factor,
+                ignore_tracking=True)
+            annot = merge_pose_streams(annot, hrnet)
 
-    romp = load_romp_sequence(
-        [os.path.join(data_root, smpl_pred_path, s + ".npz")
-         for s in names])
+        romp = load_romp_sequence(
+            [os.path.join(data_root, smpl_pred_path, s + ".npz")
+             for s in names])
 
-    # image_names anchors the track array to the full frame list, so a
-    # frame with zero surviving detections becomes a zero row instead of
-    # shifting the tail (see tracks_to_array)
-    pose2d = tracks_to_array(annot, frame_ids=list(frame_ids),
-                             max_num_people=max_num_people,
-                             verbose=verbose,
-                             image_names=[n + ".jpg"
-                                          for n in all_names],
-                             id_swap_fix=id_swap_fix)
-    pose2d[..., 0:2] *= resize_factor
+        # image_names anchors the track array to the full frame list, so a
+        # frame with zero surviving detections becomes a zero row instead of
+        # shifting the tail (see tracks_to_array)
+        pose2d = tracks_to_array(annot, frame_ids=list(frame_ids),
+                                 max_num_people=max_num_people,
+                                 verbose=verbose,
+                                 image_names=[n + ".jpg"
+                                              for n in all_names],
+                                 id_swap_fix=id_swap_fix)
+        pose2d[..., 0:2] *= resize_factor
 
-    # joints outside the frame are not visible
-    pose2d[..., 2] *= ((pose2d[..., 0] >= 0)
-                       * (pose2d[..., 0] < image_size[0] - 1)
-                       * (pose2d[..., 1] >= 0)
-                       * (pose2d[..., 1] < image_size[1] - 1))
+        # joints outside the frame are not visible
+        pose2d[..., 2] *= ((pose2d[..., 0] >= 0)
+                           * (pose2d[..., 0] < image_size[0] - 1)
+                           * (pose2d[..., 1] >= 0)
+                           * (pose2d[..., 1] < image_size[1] - 1))
 
-    # drop people visible in too few frames
-    pvis = (pose2d[..., 2] > joint_confidence_thr).max(axis=2).mean(axis=0)
-    pose2d = pose2d[:, pvis >= min_visibility_fraction]
+        # drop people visible in too few frames
+        pvis = (pose2d[..., 2] > joint_confidence_thr).max(axis=2).mean(axis=0)
+        pose2d = pose2d[:, pvis >= min_visibility_fraction]
 
-    romp, pose2d, lagged_tn = assign_smpl_to_poses(romp, pose2d,
-                                                   image_size,
-                                                   smpl_joints_fn)
-    instances = assign_instances_to_poses(instances, pose2d)
+        romp, pose2d, lagged_tn = assign_smpl_to_poses(romp, pose2d,
+                                                       image_size,
+                                                       smpl_joints_fn)
+        instances = assign_instances_to_poses(instances, pose2d)
 
-    if filter_2dpose:
-        pose2d = _filter_pose2d(pose2d, image_size, joint_confidence_thr,
-                                filter_min_cutoff, filter_beta, device)
+        if filter_2dpose:
+            pose2d = _filter_pose2d(pose2d, image_size, joint_confidence_thr,
+                                    filter_min_cutoff, filter_beta, device)
 
-    if lagged_conf_decay < 1.0:
-        # decay the stale-anchor confidences last, so that everything
-        # upstream sees the reference values
-        pose2d = decay_lagged_confidences(pose2d, lagged_tn,
-                                          lagged_conf_decay)
+        if lagged_conf_decay < 1.0:
+            # decay the stale-anchor confidences last, so that everything
+            # upstream sees the reference values
+            pose2d = decay_lagged_confidences(pose2d, lagged_tn,
+                                              lagged_conf_decay)
 
-    seg_mask = split_instance_masks(instances,
-                                    num_classes=pose2d.shape[1])
+        seg_mask = split_instance_masks(instances,
+                                        num_classes=pose2d.shape[1])
 
-    if cam_K is not None:
-        cam_K = resize_factor * np.asarray(cam_K, np.float32)
-        cam_K[2, 2] = 1.0
-        fov = fov_from_focal(min(image_size), min(cam_K[0, 0],
-                                                  cam_K[1, 1]))
-    else:
-        f = focal_from_fov(min(image_size), fov)
-        cam_K = np.array([[f, 0, image_size[0] / 2],
-                          [0, f, image_size[1] / 2],
-                          [0, 0, 1]], np.float32)
+        if cam_K is not None:
+            cam_K = resize_factor * np.asarray(cam_K, np.float32)
+            cam_K[2, 2] = 1.0
+            fov = fov_from_focal(min(image_size), min(cam_K[0, 0],
+                                                      cam_K[1, 1]))
+        else:
+            f = focal_from_fov(min(image_size), fov)
+            cam_K = np.array([[f, 0, image_size[0] / 2],
+                              [0, f, image_size[1] / 2],
+                              [0, 0, 1]], np.float32)
 
-    seq = SequenceArrays(
-        images=images,
-        depths=depths.astype(np.float32),
-        instances=instances,
-        seg_mask=seg_mask,
-        backmasks=backmasks.astype(np.float32),
-        pose2d=pose2d.astype(np.float32),
-        cam_smpl=np.stack([d["cam"] for d in romp]).astype(np.float32),
-        poses_smpl=np.stack([d["poses"] for d in romp]).astype(np.float32),
-        betas_smpl=np.stack([d["betas"] for d in romp]).astype(np.float32),
-        valid_smpl=np.stack([d["valid"] for d in romp]).astype(np.float32),
-        frame_ids=np.asarray(list(frame_ids), int),
-        cam={"K": cam_K, "fov": fov, "Kd": cam_dist_coef,
-             "image_size": tuple(image_size)},
-        lagged_tn=lagged_tn,
-    )
+        seq = SequenceArrays(
+            images=images,
+            depths=depths.astype(np.float32),
+            instances=instances,
+            seg_mask=seg_mask,
+            backmasks=backmasks.astype(np.float32),
+            pose2d=pose2d.astype(np.float32),
+            cam_smpl=np.stack([d["cam"] for d in romp]).astype(np.float32),
+            poses_smpl=np.stack([d["poses"] for d in romp]).astype(np.float32),
+            betas_smpl=np.stack([d["betas"] for d in romp]).astype(np.float32),
+            valid_smpl=np.stack([d["valid"] for d in romp]).astype(np.float32),
+            frame_ids=np.asarray(list(frame_ids), int),
+            cam={"K": cam_K, "fov": fov, "Kd": cam_dist_coef,
+                 "image_size": tuple(image_size)},
+            lagged_tn=lagged_tn,
+        )
     if timings is not None:
-        t_end = time.time()
-        timings.update(decode=t_images - t_start,
-                       postprocess=t_maps - t_images,
-                       assignment=t_end - t_maps, total=t_end - t_start)
+        parts = {k: rec.seconds(f"ingest.{k}")
+                 for k in ("decode", "postprocess", "assignment")}
+        timings.update(parts, total=sum(parts.values()))
     return seq
 
 

@@ -10,12 +10,15 @@ program; the jitted `init_global_poses` runs its Adam steps as one
 graph captured over static buffers:
 
   * `StaticState`: params, RMSprop nu/trace and its step count, the aux
-    (scene point cloud, bf16 filtered targets, betas_ref) and a device
-    log of each cycle's loss and parts, in persistent tensors that a
-    cycle updates in place (the counterpart of donation);
+    (scene point cloud, bf16 filtered targets, betas_ref), a device
+    log of each cycle's loss and parts and, with phase marks on, the
+    ring of each cycle's phase marks (`ops/phase_marks.py`), in
+    persistent tensors that a cycle updates in place (the counterpart
+    of donation);
   * `cycle_body`: one production cycle on a StaticState, with the
     arithmetic of `optimizer.stage1_cycle_eager` (the same functions,
-    their results copied into the buffers);
+    their results copied into the buffers), and with marks on a mark at
+    each phase boundary;
   * `CycleGraph`: the fit's static state and one graph per cycle
     `Variant`, each captured into one shared memory pool on a snapshot
     of the state, which is then restored: ahead of the cycles by
@@ -33,15 +36,22 @@ On the CPU the same bodies run eagerly: the caller chose the CPU. On
 CUDA a capture that fails raises; nothing runs eagerly in its place.
 The sharded fit (`parallel/spmd.py`) stays eager: its gloo collectives
 cannot be captured.
+
+Set-up runs under spans (`spans.py`): "cycle_graph.init", and in
+`prepare` "cycle_graph.prepare" > "cycle_graph.warmup" and
+"cycle_graph.capture" of each variant, from which `capture_seconds` is
+read; the init solve's graph "init_solve.warmup",
+"init_solve.capture" and "init_solve.replays". `replay` opens none.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..ops.phase_marks import PhaseMarks, make_ring
+from ..spans import Spans, span
 from . import optimizer as E
 from .scene import ScenePointCloud
 
@@ -102,10 +112,14 @@ class StaticState(NamedTuple):
     parts: torch.Tensor             # (L, len(LOG_KEYS))
     cycle: torch.Tensor             # () int64: the next cycle's row
     steps: int                      # the steps count's schedule covers
+    ring: Optional[torch.Tensor] = None   # (L, M) int64 phase marks
 
     @classmethod
     def create(cls, params: E.StageParams, opt_state: E.RMSpropState,
-               aux: E.StageAux, log_len: int) -> "StaticState":
+               aux: E.StageAux, log_len: int,
+               num_chunks: Optional[int] = None) -> "StaticState":
+        """The state of (params, opt_state, aux) with a log of
+        `log_len` rows, and with `num_chunks` a ring of phase marks."""
         dev = params.poses_T.device
         own = lambda t: t.detach().clone()                    # noqa: E731
         count = int(opt_state.count)
@@ -119,31 +133,42 @@ class StaticState(NamedTuple):
             losses=torch.zeros((log_len,), device=dev),
             parts=torch.zeros((log_len, len(E.LOG_KEYS)), device=dev),
             cycle=torch.zeros((), dtype=torch.int64, device=dev),
-            steps=E.schedule_len(count + log_len))
+            steps=E.schedule_len(count + log_len),
+            ring=(None if num_chunks is None
+                  else make_ring(log_len, num_chunks, dev)))
 
     def opt_state(self) -> E.RMSpropState:
         return E.RMSpropState(nu=self.nu, trace=self.trace, count=self.count)
 
 
 def cycle_body(st: StaticState, v: Variant, model, data: E.SeqData, coefs,
-               cfg: E.EngineConfig, optimize_scale: bool):
+               cfg: E.EngineConfig, optimize_scale: bool,
+               marks: Optional[PhaseMarks] = None):
     """One production cycle of variant `v` on `st`, in place: the
     refreshes, the full-batch gradient and one RMSprop update, the loss
-    and parts written to the log row `st.cycle`. After its first call
-    for a (variant, device) it builds no tensor from host data and does
-    not synchronize, so it can be captured."""
+    and parts written to the log row `st.cycle`; with `marks`, a mark at
+    each phase boundary into that row of the ring (the last one after
+    the row's step, at offset -1). After its first call for a (variant,
+    device) it builds no tensor from host data and does not
+    synchronize, so it can be captured."""
+    if marks:
+        marks("start")
     if v.do_scene:
         _copy_into(st.scene, E.update_scene(st.params, data, cfg))
+        if marks:
+            marks("scene")
     if v.do_filt:
         _copy_into(st.verts_filt_diff,
                    E.update_filtered_targets(st.params, model, cfg))
+        if marks:
+            marks("filter")
     aux = E.StageAux(betas_ref=st.betas_ref, scene=st.scene,
                      have_scene=v.have_scene,
                      verts_filt_diff=st.verts_filt_diff,
                      have_filters=v.have_filters)
     params, opt_state, loss, parts = E.grad_step(
         st.params, st.opt_state(), model, data, aux, coefs, cfg,
-        optimize_scale, steps=st.steps)
+        optimize_scale, steps=st.steps, mark=marks)
     _copy_into((st.params, st.nu, st.trace, st.count),
                (params, opt_state.nu, opt_state.trace, opt_state.count))
     with torch.no_grad():
@@ -151,29 +176,32 @@ def cycle_body(st: StaticState, v: Variant, model, data: E.SeqData, coefs,
         st.losses.index_copy_(0, row, loss.reshape(1))
         st.parts.index_copy_(0, row, parts[None])
         st.cycle.add_(1)
+    if marks:
+        marks("update", row_offset=-1)
 
 
-def capture_graph(body: Callable[[], None], device, pool=None):
-    """(graph, seconds): `body` run once eagerly on a side stream, as
-    PyTorch's whole-network capture requires of a warm-up (its work is
-    real: `init_global_poses_fused` counts it as the first step;
-    `CycleGraph` runs it on a snapshot and discards it), then captured
-    in a CUDA graph that shares memory pool `pool`. The capture runs
-    nothing. `seconds` = (warm-up, capture and instantiation), host
-    clock."""
+def capture_graph(body: Callable[[], None], device, pool=None,
+                  name: str = "cycle_graph"):
+    """`body` run once eagerly on a side stream, as PyTorch's
+    whole-network capture requires of a warm-up (its work is real:
+    `init_global_poses_fused` counts it as the first step; `CycleGraph`
+    runs it on a snapshot and discards it), under the span
+    "<name>.warmup", then captured in a CUDA graph that shares memory
+    pool `pool`, under "<name>.capture" (capture and instantiation). The
+    capture runs nothing. Returns the graph."""
     device = torch.device(device)
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        body()
-    torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
+    with span(f"{name}.warmup"):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        body()
-    return graph, (t1 - t0, time.perf_counter() - t1)
+    with span(f"{name}.capture"):
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+    return graph
 
 
 class CycleGraph:
@@ -184,25 +212,46 @@ class CycleGraph:
     one cycle: on CUDA one replay of its variant's graph, captured by
     `prepare` into one memory pool shared by all variants (by the
     replay itself if `prepare` has not covered the cycle); on the CPU
-    `cycle_body`, eagerly. `capture_seconds` holds each variant's
-    (warm-up, capture) seconds."""
+    `cycle_body`, eagerly. `spans` records the set-up spans of its
+    captures; `capture_seconds` holds each variant's (warm-up, capture)
+    seconds, read from them.
 
+    With `phase_marks` the state holds a ring of phase marks
+    (`ops/phase_marks.py`) and every body, eager or captured, marks its
+    phases in row `cycle` (`phase_rows`); `mark_order` holds the slots
+    each variant's marks stamp. Without, the body launches no mark and
+    the graphs hold no mark node."""
+
+    @span("cycle_graph.init")
     def __init__(self, params: E.StageParams, opt_state: E.RMSpropState,
                  aux: E.StageAux, model, data: E.SeqData, coefs,
                  cfg: E.EngineConfig, optimize_scale: bool = True,
-                 num_cycles: int = 1):
+                 num_cycles: int = 1, phase_marks: bool = False):
         self.model, self.data, self.coefs, self.cfg = model, data, coefs, cfg
         self.optimize_scale = optimize_scale
         self.num_cycles = num_cycles
-        self.state = StaticState.create(params, opt_state, aux, num_cycles)
+        self.state = StaticState.create(
+            params, opt_state, aux, num_cycles,
+            cfg.num_chunks if phase_marks else None)
+        self.marks = (PhaseMarks(self.state.ring, self.state.cycle,
+                                 cfg.num_chunks) if phase_marks else None)
+        self.mark_order: Dict[Variant, tuple] = {}
         self.device = self.state.count.device
         self.have_scene = bool(aux.have_scene)
         self.have_filters = bool(aux.have_filters)
         self._count = int(opt_state.count)
         self._next_row = 0
         self.graphs: Dict[Variant, torch.cuda.CUDAGraph] = {}
+        self.spans = Spans()
         self.capture_seconds: Dict[Variant, tuple] = {}
         self._pool = None
+
+    def phase_rows(self, first: int, last: int) -> torch.Tensor:
+        """The ring rows of cycles [first, last), copied to the host in
+        one copy (marks on only)."""
+        if self.state.ring is None:
+            raise ValueError("this CycleGraph was built without phase marks")
+        return self.state.ring[first:last].cpu()
 
     def aux(self) -> E.StageAux:
         st = self.state
@@ -245,7 +294,9 @@ class CycleGraph:
 
     def _body(self, v: Variant):
         cycle_body(self.state, v, self.model, self.data, self.coefs,
-                   self.cfg, self.optimize_scale)
+                   self.cfg, self.optimize_scale, self.marks)
+        if self.marks:
+            self.mark_order[v] = tuple(self.marks.order)
 
     def variants(self, first: int, last: int):
         """The variants of cycles [first, last) in their order of first
@@ -282,14 +333,19 @@ class CycleGraph:
         # the schedule tables must cover the last cycle's step first:
         # growing them later would drop the graphs captured here
         self._cover(self._count + max(last - first - 1, 0))
-        for v in self.variants(first, last):
-            if v in self.graphs:
-                continue
-            graph, self.capture_seconds[v] = self.on_snapshot(
-                lambda: capture_graph(lambda: self._body(v), self.device,
-                                      self._pool))
-            self._pool = graph.pool()
-            self.graphs[v] = graph
+        with self.spans, span("cycle_graph.prepare"):
+            for v in self.variants(first, last):
+                if v in self.graphs:
+                    continue
+                n = len(self.spans.records)
+                graph = self.on_snapshot(
+                    lambda: capture_graph(lambda: self._body(v),
+                                          self.device, self._pool))
+                new = {r.name: r.seconds for r in self.spans.records[n:]}
+                self.capture_seconds[v] = (new["cycle_graph.warmup"],
+                                           new["cycle_graph.capture"])
+                self._pool = graph.pool()
+                self.graphs[v] = graph
 
     def replay(self, cycle: int) -> Variant:
         """Run stage-1 cycle `cycle` (its loss lands in
@@ -312,17 +368,6 @@ class CycleGraph:
         self._count += 1
         self.have_scene, self.have_filters = v.have_scene, v.have_filters
         return v
-
-    def pool_bytes(self) -> Optional[int]:
-        """Bytes of the segments the graphs' shared pool holds, from
-        the CUDA allocator's snapshot (None if it names no pool)."""
-        if self._pool is None:
-            return 0
-        segs = torch.cuda.memory_snapshot()
-        if not segs or "segment_pool_id" not in segs[0]:
-            return None
-        return sum(s["total_size"] for s in segs
-                   if tuple(s["segment_pool_id"]) == tuple(self._pool))
 
 
 # The graph of the functional API (`optimizer.stage1_cycle{,s}_fused` on
@@ -387,9 +432,10 @@ def init_global_poses_fused(model, pose2d, poses_smpl, betas_smpl, cam_K,
             step.add_(1)
 
     if poses_T.is_cuda and num_iter > 1:
-        graph, _ = capture_graph(body, poses_T.device)
-        for _ in range(num_iter - 1):
-            graph.replay()
+        graph = capture_graph(body, poses_T.device, name="init_solve")
+        with span("init_solve.replays"):
+            for _ in range(num_iter - 1):
+                graph.replay()
     else:
         for _ in range(num_iter):
             body()

@@ -44,6 +44,7 @@ from ..ops.cameras import project_points, softplus
 from ..ops.morphology import erode
 from ..ops.one_euro import one_euro_filter, one_euro_step
 from ..ops.rasterizer import RasterSettings, rasterize_bodies
+from ..spans import span
 from .scene import (ScenePointCloud, aggregate_scene_depth,
                     build_scene_pointcloud, contact_targets)
 
@@ -232,6 +233,7 @@ def _pad_t(x: np.ndarray, tp: int) -> np.ndarray:
     return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)], 0)
 
 
+@span("prepare_seq_data")
 def prepare_seq_data(seq, cfg: EngineConfig, device="cpu") -> SeqData:
     """SequenceArrays (host) -> SeqData (device, padded). The k3 x2
     erosion runs one chunk of frames at a time to bound its
@@ -276,6 +278,7 @@ def empty_scene(cfg: EngineConfig, device="cpu") -> ScenePointCloud:
         depth_valid=torch.zeros((H, W), dtype=torch.bool, device=device))
 
 
+@span("init_aux")
 def init_aux(cfg: EngineConfig, num_vertices: int,
              betas_ref: torch.Tensor) -> StageAux:
     dev = betas_ref.device
@@ -484,6 +487,7 @@ def init_step(problem: InitProblem, poses_T, mu, nu, i, steps=None):
     return poses_T + upd, mu, nu, loss_2d.detach()
 
 
+@span("init_params")
 def init_params(model: SMPLModel, data_pose2d: np.ndarray,
                 data_poses_smpl: np.ndarray, data_betas_smpl: np.ndarray,
                 cam_K: np.ndarray, cfg: EngineConfig,
@@ -844,12 +848,14 @@ def _scale_reg(params: StageParams, coefs, cfg: EngineConfig):
 
 def cycle_loss_and_grads(params: StageParams, model: SMPLModel,
                          data: SeqData, aux: StageAux, coefs,
-                         cfg: EngineConfig):
+                         cfg: EngineConfig, mark=None):
     """Full-sequence loss, its log parts and its gradient. Each chunk's
     loss is back-propagated before the next chunk is built, so the
     gradient accumulates in the leaf copies of `params` while memory
-    holds one chunk's graph. Returns (loss, parts, grads); loss and
-    parts stay on the device."""
+    holds one chunk's graph. `mark` (`ops.phase_marks.PhaseMarks`), if
+    given, marks the end of each chunk's forward and backward and of
+    the scale regularizer. Returns (loss, parts, grads); loss and parts
+    stay on the device."""
     leaves = StageParams(*[p.detach().requires_grad_(True) for p in params])
     dev = leaves.poses_T.device
     total = torch.zeros((), device=dev)
@@ -859,11 +865,17 @@ def cycle_loss_and_grads(params: StageParams, model: SMPLModel,
         loss, p = _chunk_loss_core(chunk, model, leaves.betas,
                                    scale_factor_of(leaves), data.cam_K,
                                    aux, coefs, cfg)
+        if mark:
+            mark(f"forward{i}")
         loss.backward()
+        if mark:
+            mark(f"backward{i}")
         total = total + loss.detach()
         parts = parts + p.detach()
     reg, logged = _scale_reg(leaves, coefs, cfg)
     reg.backward()
+    if mark:
+        mark("scale_reg")
     total = total + reg.detach()
     parts[4] = logged.detach()
     grads = StageParams(*[torch.zeros_like(p) if p.grad is None else p.grad
@@ -877,11 +889,14 @@ def cycle_loss_and_grads(params: StageParams, model: SMPLModel,
 
 def grad_step(params: StageParams, opt_state: RMSpropState, model, data,
               aux, coefs, cfg: EngineConfig, optimize_scale: bool,
-              steps: Optional[int] = None):
+              steps: Optional[int] = None, mark=None):
     """The full-batch gradient and one RMSprop update (`steps`: the
-    steps a device count's schedule table covers)."""
-    loss, parts, grads = cycle_loss_and_grads(params, model, data, aux,
-                                              coefs, cfg)
+    steps a device count's schedule table covers; `mark`: as
+    `cycle_loss_and_grads` takes it)."""
+    # without marks, the six-argument call that wrappers of it take
+    args = (params, model, data, aux, coefs, cfg)
+    loss, parts, grads = (cycle_loss_and_grads(*args) if mark is None
+                          else cycle_loss_and_grads(*args, mark))
     if not optimize_scale:
         grads = grads._replace(xscale=torch.zeros_like(grads.xscale))
     with torch.no_grad():

@@ -19,6 +19,24 @@ that every cycle is a replay and timed windows hold replays only. A
 capture that fails raises.
 On the CPU the same static-state bodies run eagerly.
 
+Set-up runs under named spans (`spans.py`), kept by the Predictor's
+recorder `spans` while `__init__`, `run` and `fit` run:
+"predictor.init" (layout and windows) with "predictor.model_upload",
+"init_params" (the init solve's graph warm-up, capture and replays
+below it), "prepare_seq_data", "init_aux", "cycle_graph.init",
+"cycle_graph.prepare" (each variant's warm-up and capture) and
+"build <library>" where a kernel library is first built and loaded.
+`init_seconds` and `capture_seconds` are read from them. Each span is
+also a `torch.profiler.record_function` range, so a trace taken around
+set-up shows it.
+
+With `profile_dir`, the fit captures its graphs with phase marks on
+(`ops/phase_marks.py`): the Chrome trace of cycle 2 shows the mark
+kernels at the cycle's phase boundaries, and `phases_cycle2.json`
+beside it holds that cycle's ring row (slot names, device ns, each
+phase's ms, the slots its marks stamped) and the set-up spans so far,
+each with its seconds.
+
 When a default process group of more than one rank is initialised (an
 entry point under `torch.distributed.run`), the fit shards the time
 axis over its ranks (`parallel/spmd.py`), as the JAX package does over
@@ -30,7 +48,9 @@ capture is not ported).
 
 from __future__ import annotations
 
+import functools
 import glob
+import json
 import os
 import pickle
 import time
@@ -44,8 +64,10 @@ from ..config import require_device
 from ..data.ingestion import SequenceArrays
 from ..models.smpl import SMPLModel
 from ..ops.image import fillin_masked
+from ..ops.phase_marks import phase_ms
 from ..ops.rasterizer import preorder_faces
 from ..parallel import spmd as S
+from ..spans import Spans, span
 from ..viz.export import (save_visualization_init_data,
                           save_visualization_stage1)
 from . import optimizer as E
@@ -144,6 +166,15 @@ def load_checkpoint(ckpt_dir: str, device):
         nu=nu, trace=trace, count=state["count"])
 
 
+def _recorded(method):
+    """`method` run with the Predictor's span recorder active."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kw):
+        with self.spans:
+            return method(self, *args, **kw)
+    return wrapped
+
+
 class Predictor:
     """Run the init solve and the stage-1 fit for one sequence on
     `device` (the GPU unless the caller passes device="cpu")."""
@@ -151,10 +182,16 @@ class Predictor:
     def __init__(self, seq: SequenceArrays, model: SMPLModel,
                  output_path: str, parsed_args, device="cuda", **_):
         device = require_device(device)
+        self.spans = Spans()
+        with self.spans, span("predictor.init"):
+            self._configure(seq, model, output_path, parsed_args, device)
+
+    def _configure(self, seq, model, output_path, parsed_args, device):
         os.makedirs(output_path, exist_ok=True)
         self.device = device
         self.seq = seq
-        self.model = preorder_faces(model).to(self.device)
+        with span("predictor.model_upload"):
+            self.model = preorder_faces(model).to(self.device)
         self.output_path = output_path
         self.args = parsed_args
         self.num_iter = parsed_args.num_iter
@@ -308,17 +345,17 @@ class Predictor:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
+    @_recorded
     def run(self, verbose: bool = True) -> Dict:
         seq, cfg = self.seq, self.cfg
         verbose = (verbose and getattr(self.args, "verbose", True)
                    and self.writer)
-        t0 = time.time()
         params, init_hist, optimize_scale = E.init_params(
             self.model, seq.pose2d, seq.poses_smpl, seq.betas_smpl,
             seq.cam["K"], cfg,
             scale_factor=getattr(self.args, "scale_factor", None),
             num_iter=100)
-        self.init_seconds = time.time() - t0
+        self.init_seconds = self.spans.seconds("init_params")
         if verbose:
             print(f"init solve: {self.init_seconds:.1f}s", flush=True)
 
@@ -384,6 +421,7 @@ class Predictor:
         }
 
     # ------------------------------------------------------------------
+    @_recorded
     def fit(self, params: E.StageParams, optimize_scale: bool,
             verbose: bool = True):
         """The stage-1 cycle loop: one `CycleGraph.replay` a cycle (a
@@ -402,8 +440,10 @@ class Predictor:
         static buffers, and first resumes from the newest checkpoint
         there, running only the cycles after it; the aux state (scene,
         filtered targets) is not saved and starts afresh, as in the JAX
-        package. With `profile_dir` it writes a torch.profiler Chrome
-        trace of cycle 2 (a replay on the card) there.
+        package. With `profile_dir` it captures with phase marks on and
+        writes a torch.profiler Chrome trace of cycle 2 (a replay on the
+        card) there, and `phases_cycle2.json` beside it (module
+        docstring).
 
         Sharded (`use_spmd`), each rank keeps its frames of the data,
         params and RMSprop state; the bench marks synchronize and then
@@ -437,15 +477,14 @@ class Predictor:
             if self.writer:
                 print(f"fit: sharding {cfg.padded_frames} frames over "
                       f"{mesh.size} devices", flush=True)
-        else:
+        profile_dir = getattr(self.args, "profile_dir", None)
+        if mesh is None:
             graph = CycleGraph(params, opt_state, aux, model, data,
                                self.coefs, cfg, optimize_scale,
-                               num_cycles=self.num_iter)
-        profile_dir = getattr(self.args, "profile_dir", None)
-        prof = None
-
-        if mesh is None:
+                               num_cycles=self.num_iter,
+                               phase_marks=bool(profile_dir))
             graph.prepare(start_cycle, self.num_iter)
+        prof = None
         bench_set = set(getattr(self.args, "bench_cycles", None) or ())
         bench_marks = []
 
@@ -465,7 +504,7 @@ class Predictor:
             if profile_dir and cycle == 2 and self.writer:
                 prof = self._start_profiler()
             if mesh is None:
-                graph.replay(cycle)
+                variant = graph.replay(cycle)
                 params, opt_state = graph.state.params, \
                     graph.state.opt_state()
                 loss = graph.state.losses[cycle]
@@ -483,6 +522,8 @@ class Predictor:
                 prof.export_chrome_trace(path)
                 print("profiler trace written to", path, flush=True)
                 prof = None
+                if mesh is None:
+                    self._write_phases(graph, cycle, variant, profile_dir)
             parts_log.append(parts)
             losses.append(loss)
             if ckpt_every > 0 and (cycle + 1) % ckpt_every == 0:
@@ -517,6 +558,25 @@ class Predictor:
             save_checkpoint(ckpt_dir, cycle, params, opt_state)
         if self.mesh is not None:
             self.mesh.barrier()
+
+    # ------------------------------------------------------------------
+    def _write_phases(self, graph: CycleGraph, cycle: int, variant,
+                      out_dir: str):
+        """`phases_cycle<cycle>.json`: the cycle's ring row and the
+        set-up spans recorded so far."""
+        row = graph.phase_rows(cycle, cycle + 1)
+        out = {
+            "cycle": cycle, "slots": list(graph.marks.names),
+            "ring_ns": row[0].tolist(),
+            "phase_ms": {k: float(ms[0]) for k, ms in
+                         phase_ms(row, graph.cfg.num_chunks).items()},
+            "marked": list(graph.mark_order[variant]),
+            "setup_spans": [[r.name, r.parent, r.seconds]
+                            for r in self.spans.records]}
+        path = os.path.join(out_dir, f"phases_cycle{cycle}.json")
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print("phase marks written to", path, flush=True)
 
     # ------------------------------------------------------------------
     def _start_profiler(self):

@@ -26,6 +26,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from ..spans import span
+
 _SRC = Path(__file__).resolve().parent / "codecs.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -77,7 +79,8 @@ def _library() -> ctypes.CDLL:
     loaded once a process; the pool's threads may ask at once)."""
     with _LOCK:
         if not _LIB:
-            lib = ctypes.CDLL(str(build_library()[0]))
+            with span("build codecs"):
+                lib = ctypes.CDLL(str(build_library()[0]))
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
             lib.mhmocap_jpeg_decode_scan.argtypes = [
                 ctypes.c_char_p, p, p, i64, i32, p, p, p, p, i32, i64, i64,

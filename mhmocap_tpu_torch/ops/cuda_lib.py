@@ -1,10 +1,11 @@
 """What the port's hand-written CUDA kernel libraries share.
 
 Each library (the raster pair, `raster_cuda.py`; the fill-in,
-`fillin_cuda.py`) is a set of sources under csrc/ with a plain C
-interface, built by nvcc for sm_90a at first use into
-build/mhmocap_tpu_torch/ and bound with ctypes. This module holds the
-build (`build_library`, `NVCC_FLAGS`, `nvcc`), the current stream a
+`fillin_cuda.py`; the phase marks, `phase_marks.py`) is a set of
+sources under csrc/ with a plain C interface, built by nvcc for sm_90a
+at first use into build/mhmocap_tpu_torch/ and bound with ctypes. This
+module holds the build (`build_library`, `NVCC_FLAGS`, `nvcc`) and the
+load (`load_library`, under the span "build <stem>"), the current stream a
 launch goes on (`stream_ptr`, so that a CUDA graph capture records it)
 and `LaunchCounts`, the per-device counters the kernels count their own
 launches in.
@@ -12,6 +13,7 @@ launches in.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
@@ -24,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..native import build_dir
+from ..spans import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,6 +66,13 @@ def build_library(stem: str, sources, headers=()) -> Tuple[Path, str]:
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, lib)
     return lib, res.stdout + res.stderr
+
+
+def load_library(stem: str, sources, headers=()) -> ctypes.CDLL:
+    """`build_library` and the ctypes load, under the span
+    "build <stem>"."""
+    with span(f"build {stem}"):
+        return ctypes.CDLL(str(build_library(stem, sources, headers)[0]))
 
 
 def stream_ptr(device) -> int:

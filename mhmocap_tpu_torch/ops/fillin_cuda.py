@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_lib import LaunchCounts, build_library, stream_ptr
+from .cuda_lib import LaunchCounts, build_library, load_library, stream_ptr
 
 _SOURCES = ("fillin.cu",)
 
@@ -42,7 +42,7 @@ def build_kernels() -> Tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()[0]))
+    lib = load_library("fillin", _SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mhmocap_fillin.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     lib.mhmocap_fillin.restype = i

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_lib import LaunchCounts, build_library, stream_ptr
+from .cuda_lib import LaunchCounts, build_library, load_library, stream_ptr
 
 STRIP_H = 8
 FACE_CHUNK = 128
@@ -430,7 +430,7 @@ def build_kernels() -> Tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return _bind(ctypes.CDLL(str(build_kernels()[0])))
+    return _bind(load_library("raster", _SOURCES, _HEADERS))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

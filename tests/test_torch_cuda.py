@@ -1,5 +1,5 @@
-"""GPU tests of the port's raster kernels and its fill-in kernel (marked
-`cuda`; they skip without an NVIDIA GPU).
+"""GPU tests of the port's raster kernels, its fill-in kernel and its
+phase marks (marked `cuda`; they skip without an NVIDIA GPU).
 
 This file imports torch and the port only, so it also runs where JAX is
 not installed. On a machine with a card:
@@ -241,6 +241,88 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
         assert torch.equal(x, y)
 
 
+def _device_ops(fn):
+    """The device operations (start us, end us, name) `fn` runs, in time
+    order, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: r[0])
+
+
+@pytest.mark.cuda
+def test_cuda_phase_marks_in_graphs(cuda_device):
+    """Two CycleGraphs from one init on the card, phase marks off and on,
+    every variant captured before cycle 0 (the cadence shrunk to warmup
+    2 / filter refresh every 3): the same losses, parts, params and
+    RMSprop state bit for bit; each replay fills its own ring row, every
+    slot stamped and non-decreasing, and no other row; a profiled replay
+    of each variant launches the unmarked graph's device operations plus
+    one mark a stamped slot, and `phase_marks.split` cuts it into the
+    slot table's phases, whose launches add up to the unmarked ones."""
+    import dataclasses
+    import tempfile
+    from mhmocap_tpu_torch.engine import cycle_graph as CG
+    from mhmocap_tpu_torch.engine import optimizer as E
+    from mhmocap_tpu_torch.engine.predictor import Predictor
+    from mhmocap_tpu_torch.ops import phase_marks as PM
+    from mhmocap_tpu_torch.workload import bench_args, make_ts1_like_seq
+    model = make_synthetic_smpl(num_vertices=512, seed=1)
+    seq, _ = make_ts1_like_seq(T=8, N=2, side=128, model=model)
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = Predictor(seq, model, tmp, bench_args(1, None, 64),
+                         device=cuda_device)
+    cfg = dataclasses.replace(pred.cfg, warmup_cycles=2,
+                              update_filters_every=3)
+    m, coefs = pred.model, pred.coefs
+    params, _, _ = E.init_params(m, seq.pose2d, seq.poses_smpl,
+                                 seq.betas_smpl, seq.cam["K"], cfg)
+    data = E.prepare_seq_data(seq, cfg, cuda_device)
+    aux = E.init_aux(cfg, m.num_vertices, params.betas.clone())
+    n = 11
+    off, on = (CG.CycleGraph(params, E.rmsprop_init(params), aux, m, data,
+                             coefs, cfg, num_cycles=n, phase_marks=marks)
+               for marks in (False, True))
+    for g in (off, on):
+        g.prepare(0, n)
+    assert len(on.graphs) == len(off.graphs) == 4
+    slots = len(PM.slot_names(cfg.num_chunks))
+    for c in range(7):
+        assert off.replay(c) == on.replay(c)
+        ring = on.state.ring.cpu()
+        assert (ring[c] > 0).all() and (ring[c].diff() >= 0).all(), c
+        assert (ring[c + 1:] == -1).all(), c
+        assert ring.shape == (n, slots)
+    assert torch.equal(on.state.losses, off.state.losses)
+    assert torch.equal(on.state.parts, off.state.parts)
+    for x, y in zip(CG.tree_leaves((on.state.params, on.state.nu,
+                                    on.state.trace, on.state.count)),
+                    CG.tree_leaves((off.state.params, off.state.nu,
+                                    off.state.trace, off.state.count))):
+        assert torch.equal(x, y)
+    for c in range(7, n):
+        v = off.variants(c, c + 1)[0]
+        ops_off = _device_ops(lambda: off.replay(c))
+        ops_on = _device_ops(lambda: on.replay(c))
+        order = on.mark_order[v]
+        marks = [o for o in ops_on if PM.KERNEL in o[2]]
+        assert len(marks) == len(order) and order[0] == "start"
+        assert ([o[2] for o in ops_on if PM.KERNEL not in o[2]]
+                == [o[2] for o in ops_off]), v
+        cut, = PM.split(ops_on, [order])
+        assert set(cut) == set(order[1:]), v
+        assert sum(p.launches for p in cut.values()) == len(ops_off)
+        assert all(cut[f"forward{i}"].launches > 0
+                   and cut[f"backward{i}"].launches > 0
+                   for i in range(cfg.num_chunks))
+
+
 def _fillin_case(case):
     """(x, mask, k) on the CPU: holes at k = 7 over a batch, the k = 11
     scene channels, the cap binding at k = 3, and special values."""
@@ -302,7 +384,7 @@ def test_cuda_fillin_matches_plain(cuda_device, case):
     def body():
         out["r"] = FC.fillin_cuda(x, m, k)
 
-    graph, _ = capture_graph(body, cuda_device)
+    graph = capture_graph(body, cuda_device)
     for a in out["r"]:
         a.fill_(-7)
     graph.replay()

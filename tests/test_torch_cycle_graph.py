@@ -32,6 +32,7 @@ from mhmocap_tpu_torch.engine import cycle_graph as CG
 from mhmocap_tpu_torch.engine import optimizer as TE
 from mhmocap_tpu_torch.engine import predictor as TPr
 from mhmocap_tpu_torch.ops import image as TI
+from mhmocap_tpu_torch.ops import phase_marks as PM
 
 CYCLES = 7
 CADENCE = dict(CFG, warmup_cycles=2, update_filters_every=3)
@@ -71,9 +72,10 @@ def _eager(params, aux, tm, data, cfg, cycles=CYCLES):
     return params, st, aux, torch.stack(losses), torch.stack(parts)
 
 
-def _graph(params, aux, tm, data, cfg, cycles=CYCLES):
+def _graph(params, aux, tm, data, cfg, cycles=CYCLES, marks=False):
     g = CG.CycleGraph(params, TE.rmsprop_init(params), aux, tm, data,
-                      TE.default_coefs(), cfg, num_cycles=cycles)
+                      TE.default_coefs(), cfg, num_cycles=cycles,
+                      phase_marks=marks)
     return g, [g.replay(c) for c in range(cycles)]
 
 
@@ -317,20 +319,22 @@ def _guarded(monkeypatch, fn):
     return guard.calls
 
 
+@pytest.mark.parametrize("marks", [False, True], ids=["unmarked", "marked"])
 @pytest.mark.parametrize("variant", [
     CG.Variant(False, False, False, False), CG.Variant(True, False, True,
                                                        False),
     CG.Variant(True, True, True, True), CG.Variant(True, False, True, True),
     "init"], ids=["none", "scene", "scene_filters", "with_filters", "init"])
-def test_bodies_are_capture_safe(body, monkeypatch, variant):
+def test_bodies_are_capture_safe(body, monkeypatch, variant, marks):
     """On its second call a body (each cycle variant, with the robust
-    knobs so that every branch runs, and the init solve) builds no
-    tensor from host data and reads nothing back (torch.tensor,
-    as_tensor, from_numpy, item, tolist, cpu, numpy, bool, int,
-    float), but for the plain fill-in's stop (one int a round, the CPU
-    path only; on the card the fill-in kernel stops on the device), which
-    the scene variants run. With the plain fill-in swapped for a stand-in
-    that has no stop, a body reads nothing at all."""
+    knobs so that every branch runs, and the init solve; the cycle
+    variants with phase marks off and on) builds no tensor from host
+    data and reads nothing back (torch.tensor, as_tensor, from_numpy,
+    item, tolist, cpu, numpy, bool, int, float), but for the plain
+    fill-in's stop (one int a round, the CPU path only; on the card the
+    fill-in kernel stops on the device), which the scene variants run.
+    With the plain fill-in swapped for a stand-in that has no stop, a
+    body reads nothing at all."""
     tm, data, cfg, params, aux = _setup(body, "robust")
     if variant == "init":
         tm, args, kw_opt = _init_inputs(body)
@@ -339,17 +343,112 @@ def test_bodies_are_capture_safe(body, monkeypatch, variant):
             CG.init_global_poses_fused(tm, *args, **kw_opt)
     else:
         g = CG.CycleGraph(params, TE.rmsprop_init(params), aux, tm, data,
-                          TE.default_coefs(), cfg, num_cycles=3)
+                          TE.default_coefs(), cfg, num_cycles=3,
+                          phase_marks=marks)
 
         def run():
             CG.cycle_body(g.state, variant, tm, data, TE.default_coefs(),
-                          cfg, True)
+                          cfg, True, g.marks)
     run()
     rounds = _plain_fillin_rounds(monkeypatch)
     assert _guarded(monkeypatch, run) == ["__int__"] * sum(rounds)
     assert bool(rounds) == (variant != "init" and variant.do_scene)
     monkeypatch.setattr(TI, "fillin_plain", _fixed_round_fillin)
     assert _guarded(monkeypatch, run) == []
+
+
+def test_phase_marks_fill_a_row_a_cycle(body):
+    """With marks on, cycles 0-6 (every variant) each fill their ring
+    row: every slot stamped, non-decreasing; the scene and the filter
+    phases read 0 where the variant skips them and the marks stamp
+    the slots in table order; rows past the last cycle stay -1."""
+    tm, data, cfg, params, aux = _setup(body, "default")
+    g = CG.CycleGraph(params, TE.rmsprop_init(params), aux, tm, data,
+                      TE.default_coefs(), cfg, num_cycles=CYCLES + 1,
+                      phase_marks=True)
+    variants = [g.replay(c) for c in range(CYCLES)]
+    rows = g.phase_rows(0, CYCLES + 1)
+    assert rows.shape == (CYCLES + 1, 5 + 2 * cfg.num_chunks)
+    assert (rows[-1] == -1).all()
+    rows = rows[:CYCLES]
+    assert (rows > 0).all() and (rows.diff(dim=1) >= 0).all()
+    assert (rows[1:, 0] >= rows[:-1, -1]).all()
+    ms = PM.phase_ms(rows, cfg.num_chunks)
+    names = PM.slot_names(cfg.num_chunks)
+    for c, v in enumerate(variants):
+        assert (ms["scene"][c] == 0) == (not v.do_scene), c
+        assert (ms["filter"][c] == 0) == (not v.do_filt), c
+        order = g.mark_order[v]
+        assert order == tuple(n for n in names
+                              if (n != "scene" or v.do_scene)
+                              and (n != "filter" or v.do_filt)), v
+
+
+def test_phase_marks_leave_the_fit_bit_identical(body):
+    """Cycles 0-6 with marks on and off: the same losses, parts, params,
+    RMSprop state, scene and filtered targets, bit for bit; without
+    marks the state holds no ring."""
+    tm, data, cfg, params, aux = _setup(body, "robust")
+    off, _ = _graph(params, aux, tm, data, cfg)
+    on, _ = _graph(params, aux, tm, data, cfg, marks=True)
+    assert off.state.ring is None and off.marks is None
+    assert torch.equal(on.state.losses, off.state.losses)
+    assert torch.equal(on.state.parts, off.state.parts)
+    _assert_same((on.state.params, on.state.nu, on.state.trace,
+                  on.state.count, on.state.scene, on.state.verts_filt_diff),
+                 (off.state.params, off.state.nu, off.state.trace,
+                  off.state.count, off.state.scene,
+                  off.state.verts_filt_diff), "state")
+
+
+def test_marks_off_call_no_mark(body, monkeypatch):
+    """With marks off no cycle body calls a mark (a mark raises here);
+    with marks on the same cycles do."""
+    tm, data, cfg, params, aux = _setup(body, "default")
+
+    def refuse(*a, **k):
+        raise AssertionError("a mark was called")
+    monkeypatch.setattr(PM.PhaseMarks, "__call__", refuse)
+    g, _ = _graph(params, aux, tm, data, cfg)
+    assert g.mark_order == {}
+    with pytest.raises(AssertionError, match="a mark was called"):
+        _graph(params, aux, tm, data, cfg, cycles=1, marks=True)
+
+
+def test_capture_seconds_is_read_from_the_spans(body, monkeypatch):
+    """`capture_seconds` holds, for each variant `prepare` captures, the
+    seconds of the warm-up and capture spans its capture recorded
+    (spans opened inside them, such as a library's first build, do not
+    count). The capture is a stand-in here: the CPU captures nothing."""
+    from mhmocap_tpu_torch.spans import span
+    tm, data, cfg, params, aux = _setup(body, "default")
+    g = CG.CycleGraph(params, TE.rmsprop_init(params), aux, tm, data,
+                      TE.default_coefs(), cfg, num_cycles=CYCLES)
+    assert g.capture_seconds == {}
+
+    class Graph:
+        def pool(self):
+            return None
+
+    def capture(body, device, pool=None, name="cycle_graph"):
+        with span(f"{name}.warmup"):
+            with span("build lib"):
+                pass
+        with span(f"{name}.capture"):
+            pass
+        return Graph()
+    monkeypatch.setattr(CG, "capture_graph", capture)
+    monkeypatch.setattr(g, "device", torch.device("cuda"))
+    g.prepare(0, CYCLES)
+    want = g.variants(0, CYCLES)
+    assert list(g.capture_seconds) == want and len(want) == 4
+    recs = g.spans.records
+    warm = [r.seconds for r in recs if r.name == "cycle_graph.warmup"]
+    cap = [r.seconds for r in recs if r.name == "cycle_graph.capture"]
+    assert list(g.capture_seconds.values()) == list(zip(warm, cap))
+    assert {r.parent for r in recs if r.name in (
+        "cycle_graph.warmup", "cycle_graph.capture")} == {
+            "cycle_graph.prepare"}
 
 
 def test_checkpoint_resume_through_static_buffers(body, tmp_path):
