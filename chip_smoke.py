@@ -5,10 +5,11 @@
 Phases (any failure raises, so the process exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the raster kernels (ops/csrc/raster_*.cu) and the
-     fill-in kernel (ops/csrc/fillin.cu) with nvcc for sm_90a and the
-     host codecs (native/codecs.cpp) with g++, the three compilers
-     started at once, all into build/mhmocap_tpu_torch/, and prints the
+  2. build: compiles the raster kernels (ops/csrc/raster_*.cu), the
+     face set-up kernels (ops/csrc/face_setup.cu) and the fill-in kernel
+     (ops/csrc/fillin.cu) with nvcc for sm_90a and the host codecs
+     (native/codecs.cpp) with g++, the four builds started at once, all
+     into build/mhmocap_tpu_torch/, and prints the
      compilers, the build times and ptxas' register, spill and
      shared-memory report;
   3. kernels: each kernel against its plain torch version on the card
@@ -17,7 +18,12 @@ Phases (any failure raises, so the process exits non-zero):
      bodies, 29 per call at windows 160/128/112, 30 at 160/112/80,
      phase 7's, 12 at the full-frame 256, 34 and 17 at 160/128/112;
      errors printed beside their bounds), the forward's
-     log1pf shortcut checked, two forward and two backward launches
+     log1pf shortcut checked; at each shape the face set-up kernels
+     (ops/csrc/face_setup.cu) first, against their plain version: tab
+     and agg bit for bit (else the entries that differ and their
+     largest gap in ulps), d_uvz to 1e-6 relative norm, two backward
+     launches bit-identical, one launch counted a call; the raster
+     kernels then run on the set-up kernel's tables; two forward and two backward launches
      bit-identical, one forward + backward at B=29, window 160 captured
      in a CUDA graph whose replay must be bit-identical to the eager
      launches, then, at the shapes of phases 4, 6 and 9
@@ -28,6 +34,13 @@ Phases (any failure raises, so the process exits non-zero):
      pairs among them whose coverage term is not 0 and those the
      forward's cull keeps, and each kernel's bound on that work and its
      share of it;
+  3a. face set-up timing, at the fit's call shapes (29 bodies at
+     windows 160 and 128): each set-up kernel on the device's clock (20
+     launches captured in a CUDA graph, its replays between CUDA events)
+     beside its bound (bytes over 3.35 TB/s: each input read once, each
+     output written once), the plain version (eager) and the torch
+     chain they replace (face_tables and its autograd backward, in a
+     graph);
   3b. fill-in: the fill-in kernel (ops/csrc/fillin.cu) against its
      plain version (ops.image.fillin_plain) at its three call shapes,
      built from bench-ts1: the scene rebuild's map and mask (k 7,
@@ -250,10 +263,12 @@ def phase_device():
 
 
 def phase_build():
-    """The raster kernels, the fill-in kernel (nvcc) and the host codecs
-    (g++), each compiler started at once on a thread of its own."""
+    """The raster kernels, the face set-up kernels, the fill-in kernel
+    (nvcc) and the host codecs (g++), each build started at once on a
+    thread of its own."""
     from concurrent.futures import ThreadPoolExecutor
     from mhmocap_tpu_torch import native
+    from mhmocap_tpu_torch.ops import face_setup as FS
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops import raster_cuda as RC
 
@@ -262,12 +277,12 @@ def phase_build():
         lib, log = build()
         return lib, log, time.time() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(timed, build) for name, build in (
-            ("raster", RC.build_kernels), ("fill-in", FC.build_kernels),
-            ("codecs", native.build_library))}
+            ("raster", RC.build_kernels), ("face set-up", FS.build_kernels),
+            ("fill-in", FC.build_kernels), ("codecs", native.build_library))}
         built = {name: job.result() for name, job in jobs.items()}
-    for name in ("raster", "fill-in"):
+    for name in ("raster", "face set-up", "fill-in"):
         lib, log, dt = built[name]
         print(f"[2 build] {name} kernels {lib} in {dt:.2f}s"
               + ("" if log else " (already built)"), flush=True)
@@ -276,6 +291,7 @@ def phase_build():
                                        "Compiling entry")):
                 print(f"[2 build] ptxas: {line.strip()}")
     RC._library()
+    FS._library()
     FC._library()
     cxx = native.compiler()
     version = subprocess.run([cxx, "--version"], capture_output=True,
@@ -306,11 +322,32 @@ def _check_raster_calls(cfg, where, calls=None):
 
 
 def _reset_counts():
-    """Zero the raster and fill-in kernels' launch counters."""
+    """Zero the raster, face set-up and fill-in kernels' launch
+    counters."""
+    from mhmocap_tpu_torch.ops import face_setup as FS
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     RasterPlanes.launches.reset()
+    FS.launches.reset()
     FC.launches.reset()
+
+
+COUNTED = ("fwd", "bwd", "setup_fwd", "setup_bwd")
+
+
+def _raster_counts(where):
+    """The raster kernels' launches since the last reset ("fwd", "bwd")
+    and the face set-up's ("setup_fwd", "setup_bwd"), each counted by
+    the kernel. Every raster call on the card launches one set-up
+    forward and, if differentiated, one set-up backward, so each set-up
+    count must equal the raster's."""
+    from mhmocap_tpu_torch.ops import face_setup as FS
+    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
+    raster, faces = dict(RasterPlanes.launches), dict(FS.launches)
+    if faces != raster:
+        raise AssertionError(f"{where}: face set-up launches {faces} are "
+                             f"not the raster launches {raster}")
+    return dict(raster, **{f"setup_{k}": v for k, v in faces.items()})
 
 
 def _fillin_counts(where):
@@ -333,7 +370,7 @@ def phase_kernels():
     from mhmocap_tpu_torch.ops import raster_cuda as RC
     from mhmocap_tpu_torch.ops.rasterizer import preorder_faces
     from mhmocap_tpu_torch.workload import (KERNEL_SHAPES, TIMED_SHAPES,
-                                            cuda_ms, posed_raster_tables)
+                                            cuda_ms, posed_uvz)
     dev = torch.device("cuda")
     # the faces in the Predictor's static spatial order, as on the main
     # path (the schedule is exact for any order; a coherent order gives
@@ -348,10 +385,16 @@ def phase_kernels():
     if bad:
         raise AssertionError("the forward's log1pf shortcut is not exact")
     errs = {"fwd": 0.0, "bwd": 0.0}
-    timing = {}
+    timing, setup = {}, {}
     for B, win in ((b, w) for b, wins in KERNEL_SHAPES for w in wins):
-        tab, agg, lists, bounds, inv_blur, znear = posed_raster_tables(
-            model, win, B, seed=win, device=dev)
+        uvz, origin, st = posed_uvz(model, win, B, seed=win, device=dev)
+        setup[B, win] = _face_setup_check(model.faces, uvz, origin, st)
+        tab, agg = setup[B, win].pop("tables")
+        inv_blur, znear = 1.0 / st.sil_blur_px2, st.znear
+        lists, bounds = RC._strip_chunk_lists(agg, win)
+        if (B, win) in FACE_SETUP_TIMED:
+            setup[B, win].update(_face_setup_timing(
+                model.faces, uvz, origin, st, tab, agg, setup[B, win]))
         zk, lk, ak = RC.raster_fwd_cuda(tab, agg, win, inv_blur, znear)
         again = RC.raster_fwd_cuda(tab, agg, win, inv_blur, znear)
         zp, lp, ap = RC.raster_fwd_plain(tab, win, inv_blur, znear)
@@ -464,7 +507,7 @@ def phase_kernels():
                           f"{bound[k][0]:.4f} ms ({bound[k][1]}), share "
                           f"{bound[k][0] / t[k]:.3f}"
                           for k in ("fwd", "bwd")), flush=True)
-    return errs, timing
+    return errs, timing, setup
 
 
 # phase 3's CUDA graph check: the raster call shape of bench-ts1's
@@ -502,6 +545,115 @@ def _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear, fwd, bwd):
     if not same or launches != {"fwd": 1, "bwd": 1}:
         raise AssertionError("the raster kernels' graph replay differs from "
                              "their eager launches")
+
+
+# Phase 3a: the face set-up kernels timed at the fit's call shapes
+FACE_SETUP_TIMED = ((29, 160), (29, 128))
+
+
+def _bit_gap(a, b):
+    """(entries of float32 a and b whose bits differ, the largest gap
+    between them in units in the last place)."""
+    ia, ib = (x.contiguous().view(torch.int32).long() for x in (a, b))
+
+    def line(i):        # the floats' order as integers
+        return torch.where(i < 0, -(i & 0x7fffffff), i)
+    return int((ia != ib).sum()), int((line(ia) - line(ib)).abs().max())
+
+
+def _graph_ms(fn, device, reps=20):
+    """Mean ms of a call of fn on the device's clock: reps calls captured
+    in one CUDA graph (the host's launch cost left out), its replays
+    timed between CUDA events."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    from mhmocap_tpu_torch.workload import cuda_ms
+    graph = capture_graph(lambda: [fn() for _ in range(reps)], device,
+                          name="timed")
+    return cuda_ms(graph.replay, 5) / reps
+
+
+def _setup_args(faces, uvz, origin, st):
+    """The face set-up's arguments (uvz, origin, faces, znear, inv_blur,
+    reach_y), as rasterize_bodies passes them."""
+    return (uvz, origin, faces, st.znear, 1.0 / st.sil_blur_px2,
+            3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0)
+
+
+def _face_setup_check(faces, uvz, origin, st):
+    """Phase 3: the face set-up kernels against their plain version at
+    one call shape. Returns the kernel's tables and the gaps."""
+    from mhmocap_tpu_torch.ops import face_setup as FS
+    from mhmocap_tpu_torch.ops import raster_cuda as RC
+    B, win = uvz.shape[0], st.window
+    args = _setup_args(faces, uvz, origin, st)
+    FS.launches.reset()
+    tab, agg = FS.face_setup_fwd_cuda(*args)
+    ptab, pagg = RC.face_tables(*args)
+    rng = np.random.RandomState(win + B)
+    dtab = torch.as_tensor(rng.randn(B, tab.shape[2], 12),
+                           dtype=torch.float32, device=uvz.device)
+    gk = FS.face_setup_bwd_cuda(dtab, *args[:4])
+    again = FS.face_setup_bwd_cuda(dtab, *args[:4])
+    gp = FS.face_setup_bwd_plain(dtab, *args[:4])
+    torch.cuda.synchronize()
+    counted = dict(FS.launches)
+    res = {"tab": _bit_gap(tab, ptab), "agg": _bit_gap(agg, pagg),
+           "d_uvz": _bit_gap(gk, gp),
+           "d_uvz_rel_norm": float(torch.linalg.norm(gk - gp)
+                                   / torch.linalg.norm(gp))}
+    print(f"[3 faces] B={B} win {win}: set-up kernels vs plain, (entries "
+          f"that differ, largest ulp gap): tab {res['tab']} of "
+          f"{tab.numel()}, agg {res['agg']} of {agg.numel()}, d_uvz "
+          f"{res['d_uvz']} of {gk.numel()} (relative norm "
+          f"{res['d_uvz_rel_norm']:.3g}, bound 1e-6); two backward "
+          f"launches bit-identical: {torch.equal(gk, again)}; launches "
+          f"counted {counted}", flush=True)
+    if (res["tab"][0] or res["agg"][0] or not torch.equal(gk, again)
+            or not res["d_uvz_rel_norm"] <= 1e-6
+            or counted != {"fwd": 1, "bwd": 2}):
+        raise AssertionError(f"face set-up kernels vs plain, B={B} window "
+                             f"{win}: {res}, launches {counted}")
+    return {"tables": (tab, agg), "errs": res, "dtab": dtab, "d_uvz": gk}
+
+
+def _face_setup_timing(faces, uvz, origin, st, tab, agg, checked):
+    """Phase 3a: the set-up kernels timed at one call shape beside their
+    bound, their plain version and the torch chain they replace."""
+    from mhmocap_tpu_torch.ops import face_setup as FS
+    from mhmocap_tpu_torch.ops import raster_cuda as RC
+    from mhmocap_tpu_torch.workload import cuda_ms
+    dev = uvz.device
+    B, win = uvz.shape[0], st.window
+    args = _setup_args(faces, uvz, origin, st)
+    dtab, gk = checked["dtab"], checked["d_uvz"]
+    # the torch chain the kernels replace, forward and backward, as the
+    # fit runs it: in a graph
+    x = uvz.clone().requires_grad_(True)
+
+    def chain():
+        t, _ = RC.face_tables(x, *args[1:])
+        torch.autograd.grad(t[:, :12], x, dtab.transpose(1, 2))
+
+    fs32 = FS.incidence(faces, uvz.shape[1], dev)
+    nbytes = {"fwd": _nbytes(uvz, origin, fs32[0], tab, agg),
+              "bwd": _nbytes(uvz, origin, *fs32, dtab, gk)}
+    t = {"fwd": _graph_ms(lambda: FS.face_setup_fwd_cuda(*args), dev),
+         "bwd": _graph_ms(lambda: FS.face_setup_bwd_cuda(dtab, *args[:4]),
+                          dev),
+         "plain_fwd": cuda_ms(lambda: RC.face_tables(*args), 2),
+         "plain_bwd": cuda_ms(lambda: FS.face_setup_bwd_plain(
+             dtab, *args[:4]), 2),
+         "chain": _graph_ms(chain, dev, 5)}
+    bound = {k: _bound(0, nbytes[k]) for k in nbytes}
+    print(f"[3a faces] time B={B} win {win}: "
+          + ", ".join(f"{k} {t[k]:.4f} ms (plain {t['plain_' + k]:.3f}; "
+                      f"{nbytes[k] / 1e6:.1f} MB, bound "
+                      f"{bound[k][0]:.4f} ms, share "
+                      f"{bound[k][0] / t[k]:.3f})"
+                      for k in ("fwd", "bwd"))
+          + f"; the torch chain they replace, forward + backward in a "
+          f"CUDA graph: {t['chain']:.4f} ms", flush=True)
+    return dict(t, bound=bound, bytes=nbytes)
 
 
 # Phase 3b: the fill-in kernel (ops/csrc/fillin.cu) against its plain
@@ -749,7 +901,6 @@ def _load_pickles(out_dir, schema=None):
 
 def phase_main_path(out_dir):
     from mhmocap_tpu_torch.engine.predictor import Predictor
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     from mhmocap_tpu_torch.workload import (T, WINDOW, bench_args,
                                             make_ts1_like_seq)
     seq, model = make_ts1_like_seq()
@@ -768,7 +919,7 @@ def phase_main_path(out_dir):
     out = pred.run(verbose=True)
     torch.cuda.synchronize()
     run_s = time.time() - t0
-    launches = dict(RasterPlanes.launches)
+    launches = _raster_counts("4 main")
     fill = _fillin_counts("4 main")
     losses = pred.stage1_losses
     per_cycle = np.asarray(pred.bench_window_seconds)
@@ -953,7 +1104,6 @@ def phase_entry_points(tmp):
     from mhmocap_tpu_torch import eval_mupots, predict_mupots, sweep
     from mhmocap_tpu_torch.data.synthetic import generate_sequence
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
     body = make_synthetic_smpl()
     for ts, people in ENTRY_TREES:
@@ -979,7 +1129,7 @@ def phase_entry_points(tmp):
                  out, "--device", "cuda"])
             torch.cuda.synchronize()
         wall = time.time() - t0
-        launches[ts] = dict(RasterPlanes.launches)
+        launches[ts] = _raster_counts(f"6 entry TS{ts}")
         fill[ts] = _fillin_counts(f"6 entry TS{ts}")
         _check_raster_calls(summary["engine_config"], f"6 entry TS{ts}")
         ing = summary["ingest_seconds"]
@@ -1214,7 +1364,6 @@ def phase_shipped_config(tmp):
     write_robust_tree wrote under tmp."""
     import pickle
     from mhmocap_tpu_torch import eval_mupots, predict_mupots
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
     _reset_counts()
     t0 = time.time()
@@ -1225,7 +1374,7 @@ def phase_shipped_config(tmp):
              "--device", "cuda"])
         torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(RasterPlanes.launches)
+    launches = _raster_counts("7 robust")
     fill = _fillin_counts("7 robust")
     cfg = summary["engine_config"]
     _check_raster_calls(cfg, "7 robust")
@@ -1415,7 +1564,6 @@ def phase_visualization_fhsog(tmp, robust_dir):
     from mhmocap_tpu_torch.engine import fhsog
     from mhmocap_tpu_torch.io import read_png
     from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     with open(os.path.join(robust_dir, "optvar_stage1.pkl"), "rb") as f:
         optvar = pickle.load(f)
     with open(os.path.join(robust_dir, "visualization_data_stage1.pkl"),
@@ -1486,14 +1634,14 @@ def phase_visualization_fhsog(tmp, robust_dir):
                                            num_depth_bins=FHSOG_BINS)
 
     args = inputs(dev)
-    RasterPlanes.launches.reset()
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     with RasterClock() as clock:
         out = build(args)
         torch.cuda.synchronize()
     build_s = time.time() - t0
-    launches = dict(RasterPlanes.launches)
+    launches = _raster_counts("9 fhsog")
     raster_s = clock.seconds()
     print(f"[9 fhsog] T={T} N={N} {H}x{W}, {FHSOG_BINS} bins, z "
           f"[{near_z:.3f}, {far_z:.3f}]: build {build_s:.3f}s, raster "
@@ -1603,7 +1751,6 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
     from mhmocap_tpu_torch import convert
     from mhmocap_tpu_torch.engine import optimizer as E
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     from mhmocap_tpu_torch.parallel import spmd as S
     dev = torch.device(device)
     seq, model, cfg, coefs = _shard_case(spec, dev)
@@ -1658,7 +1805,7 @@ def _shard_run(spec, params_np, cycles, device, mesh=None):
                 params, state, aux, c, model, data, coefs, cfg, mesh)
         sync()
         out["seconds"].append(time.time() - t0)
-        out["launches"].append(dict(RasterPlanes.launches))
+        out["launches"].append(_raster_counts("10 sharded"))
         out["fillin"].append(dict(FC.launches))
         out["losses"].append(float(loss))
     if mesh is not None:
@@ -1707,7 +1854,7 @@ def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
     fails = []
     want = {k: (len(cfg.window_groups) * ranks[0]["local_chunks"]
                 if torch.device(device).type == "cuda" else 0)
-            for k in ("fwd", "bwd")}
+            for k in COUNTED}
     names = ("poses_T", "poses_smpl", "betas", "zmin_lin", "zmax_lin",
              "xscale")
     for r, got in enumerate(ranks):
@@ -1768,7 +1915,7 @@ def phase_sharded(spec=SHARD_SPEC, device="cuda", rank_device="cuda:0"):
     if fails:
         raise AssertionError("sharded vs one process: " + "; ".join(fails))
     return ({k: sum(n[k] for g in ranks for n in g["launches"])
-             for k in ("fwd", "bwd")},
+             for k in COUNTED},
             {k: sum(n[k] for g in ranks for n in g["fillin"])
              for k in ranks[0]["fillin"][0]})
 
@@ -1785,7 +1932,6 @@ def _run_cycles(step, n):
     """(seconds, raster launches, fill-in counts) of cycles 0..n-1, each
     run by step(c) between synchronizations with the counts from 0."""
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     secs, launches, fill = [], [], []
     for c in range(n):
         torch.cuda.synchronize()
@@ -1794,7 +1940,7 @@ def _run_cycles(step, n):
         step(c)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launches.append(dict(RasterPlanes.launches))
+        launches.append(_raster_counts("11 graphs"))
         fill.append(dict(FC.launches))
     return np.asarray(secs), launches, fill
 
@@ -1915,7 +2061,7 @@ def phase_graphs():
               flush=True)
         fails.append("graph cycles differ from the eager cycles")
 
-    want = {"fwd": per_cycle, "bwd": per_cycle}
+    want = dict.fromkeys(COUNTED, per_cycle)
     bad = [(c, n_e, n_g) for c, (n_e, n_g) in enumerate(
         zip(eager["launches"], g_launches)) if n_e != want or n_g != want]
     print(f"[11 graphs] raster launches a cycle, counted by the kernels: "
@@ -2146,7 +2292,6 @@ def phase_bench(graphs):
     import contextlib
     import io
     from mhmocap_tpu_torch import bench
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
     fails = []
     _reset_counts()
     buf = io.StringIO()
@@ -2154,7 +2299,7 @@ def phase_bench(graphs):
     with contextlib.redirect_stdout(buf):
         res = bench.main([])
     wall = time.time() - t0
-    launches = dict(RasterPlanes.launches)
+    launches = _raster_counts("12 bench")
     fill = _fillin_counts("12 bench")
     for line in buf.getvalue().splitlines():
         print(f"[12 bench] {line}", flush=True)
@@ -2186,7 +2331,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
     phase_build()
-    errs, timing = phase_kernels()
+    errs, timing, setup = phase_kernels()
     fillin = phase_fillin()
     with tempfile.TemporaryDirectory() as tmp:
         runs = [phase_main_path(os.path.join(tmp, "main"))]
@@ -2223,6 +2368,27 @@ def main():
          "library_ms": None, "pairs": t160["pairs"],
          "live_pairs": t160["live"]}
         for k, line in (("fwd", 515), ("bwd", 650))]
+    # the face set-up's at B=29, window 160; its launches are those of
+    # the main paths, each run's equal to its raster launches; its bits
+    # that differ from the plain version over every shape of phase 3
+    f160 = setup[29, 160]
+    timed = {k: v for k, v in setup.items() if "fwd" in v}
+    bits = {"fwd": sum(v["errs"]["tab"][0] + v["errs"]["agg"][0]
+                       for v in setup.values()),
+            "bwd": sum(v["errs"]["d_uvz"][0] for v in setup.values())}
+    kernels += [
+        {"name": f"face_setup_{k}", "route": "cuda",
+         "source": "mhmocap_tpu_torch/ops/csrc/face_setup.cu",
+         "replaces": None, "launches": launches[f"setup_{k}"],
+         "bits_differ": bits[k], "shapes_checked": len(setup),
+         "max_rel_norm_err": (0.0 if k == "fwd" else max(
+             v["errs"]["d_uvz_rel_norm"] for v in setup.values())),
+         "ms": f160[k], "plain_ms": f160[f"plain_{k}"],
+         "bound_ms": f160["bound"][k][0], "bound_by": "bytes",
+         "library_ms": None, "chain_graph_ms": f160["chain"],
+         "shapes": {f"{b}x{w}": {"ms": v[k], "bound_ms": v["bound"][k][0]}
+                    for (b, w), v in timed.items()}}
+        for k in ("fwd", "bwd")]
     # the fill-in's numbers at the scene rebuild's call (once a cycle);
     # its launches are the round launches (FILLIN_ITERS a call)
     kernels.append(dict(

@@ -11,7 +11,8 @@ on their inputs' device:
   * points-inside-mesh queries and fog carving with body meshes;
   * the SMPL-conditioned FHSOG, whose per-frame full-frame raster of
     every body goes through `rasterize_bodies`: on CUDA tensors that is
-    the forward raster kernel at a window covering the whole frame.
+    the face set-up's and the raster's forward kernels at a window
+    covering the whole frame.
 
 Differences of form, not of result, from the JAX package:
   * the 1-D EDT of a binary seed is the squared distance to the nearest

@@ -26,11 +26,17 @@ design answers). This module holds what surrounds them:
     rectangle, or whose invalid mark, puts every pixel of it where the
     term is exactly 0 and nothing is covered; `_fwd_work` counts the
     pixel-face pairs the kernel still evaluates;
+  * `face_extents` and `face_tables`: the face set-up in torch, from
+    projected vertices to the planes and extents (the face gather and
+    `rasterizer.face_planes`) and on to the tables (`_tables`). It is
+    the CPU path's set-up and the plain version of the set-up's forward
+    kernel (`face_setup.py`), which does it all on CUDA tensors;
   * the plain torch version of both kernels, over all faces in face
     chunks (the CPU path, and the reference the card is held to);
-  * `RasterPlanes`, the autograd.Function: on a CUDA tensor it
-    launches the kernels (or raises), on a CPU tensor it runs the
-    plain version;
+  * `RasterPlanes`, the autograd.Function of the CPU path: the plain
+    version on CPU tensors, differentiated by autograd up to the
+    planes. CUDA tensors take `face_setup.RasterFaces`, which launches
+    the set-up kernels and the raster pair;
   * `RasterPlanes.launches` (`cuda_lib.LaunchCounts`): each kernel
     counts its own launches on the device (raster_common.cuh
     count_launch), so a launch recorded in a CUDA graph counts at every
@@ -552,19 +558,74 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
 # autograd.Function
 # ---------------------------------------------------------------------------
 
+def _reach(inv_blur: float) -> float:
+    """The silhouette's reach past a face's bbox, in pixels: the x
+    extents of the chunk aggregates."""
+    return 3.0 / np.sqrt(inv_blur) + 1.0
+
+
 def _tables(planes, bbox, lo_y, hi_y, ok_sil, ok_depth, inv_blur):
-    reach = 3.0 / np.sqrt(inv_blur) + 1.0
-    return _fold_pack(planes, bbox, ok_sil, ok_depth, lo_y, hi_y, reach)
+    return _fold_pack(planes, bbox, ok_sil, ok_depth, lo_y, hi_y,
+                      _reach(inv_blur))
+
+
+def face_extents(uvz, origin, faces, znear: float, reach_y: float):
+    """The per-face planes of B bodies from their projected vertices uvz
+    (B, V, 3), window origins (B, 2) int64 and faces (F, 3): (planes
+    (B, F, 12), (bbox, lo_y, hi_y, ok_sil, ok_depth)), with the y
+    extents reach_y past the bbox. Differentiable in uvz."""
+    from .rasterizer import face_planes
+    fuvz = uvz[:, faces]                                 # (B, F, 3, 3)
+    planes, bbox, ok_sil, ok_depth = face_planes(
+        fuvz[..., :2] - origin[:, None, None, :].to(uvz.dtype),
+        fuvz[..., 2], znear)
+    return planes, (bbox, bbox[..., 2] - reach_y, bbox[..., 3] + reach_y,
+                    ok_sil, ok_depth)
+
+
+def face_tables(uvz, origin, faces, znear: float, inv_blur: float,
+                reach_y: float):
+    """The raster kernels' inputs (tab (B, 16, F_pad), agg (B, nc, 4))
+    from `face_extents`' planes: the torch chain of the face set-up,
+    and the plain version of its forward kernel."""
+    planes, extents = face_extents(uvz, origin, faces, znear, reach_y)
+    return _tables(planes, *extents, inv_blur)
+
+
+def _window_outputs(zmin, logkeep):
+    """(zbuf, sil) from the forward's zmin and logkeep: zbuf is +inf
+    where no face covers."""
+    zbuf = torch.where(zmin >= BIG, torch.full_like(zmin, float("inf")),
+                       zmin)
+    return zbuf, 1.0 - torch.exp(logkeep)
+
+
+def _cotangents(d_zbuf, d_sil, logkeep, amin):
+    """The backward kernel's per-pixel cotangents (d_z, d_lk) from those
+    of (zbuf, sil): d_z is 0 where no face covers or d_zbuf is not
+    finite."""
+    zero = torch.zeros((), dtype=torch.float32, device=logkeep.device)
+    if d_zbuf is None:
+        d_z = torch.zeros_like(logkeep)
+    else:
+        d_z = torch.where(torch.isfinite(d_zbuf) & (amin >= 0),
+                          d_zbuf, zero).contiguous()
+    if d_sil is None:
+        d_lk = torch.zeros_like(logkeep)
+    else:
+        d_lk = (-torch.exp(logkeep) * d_sil).contiguous()
+    return d_z, d_lk
 
 
 class RasterPlanes(torch.autograd.Function):
-    """(zbuf, sil) of B bodies' windows from per-face planes.
+    """(zbuf, sil) of B bodies' windows from per-face planes, on CPU
+    tensors: the kernels' plain version.
 
     planes (B, F, 12) (differentiated); bbox (B, F, 4), lo_y/hi_y (B, F)
     reach-expanded y extents, ok_sil/ok_depth (B, F) bool (data only).
-    zbuf is +inf where no face covers. CUDA tensors run the kernels,
-    CPU tensors the plain version. `launches` counts kernel launches
-    (`LaunchCounts`).
+    zbuf is +inf where no face covers. CUDA tensors raise: on the card
+    the raster runs `face_setup.RasterFaces`. `launches` counts the
+    kernels' launches (`LaunchCounts`), whoever launches them.
     """
 
     launches = LaunchCounts(("fwd", "bwd"))
@@ -572,44 +633,28 @@ class RasterPlanes(torch.autograd.Function):
     @staticmethod
     def forward(ctx, planes, bbox, lo_y, hi_y, ok_sil, ok_depth, win,
                 inv_blur, znear):
+        if planes.is_cuda:
+            raise ValueError("RasterPlanes runs the plain raster on CPU "
+                             "tensors; CUDA tensors take "
+                             "face_setup.RasterFaces")
         _check_window(win)
         with torch.no_grad():
             tab, agg = _tables(planes, bbox, lo_y, hi_y, ok_sil, ok_depth,
                                inv_blur)
-            if planes.is_cuda:
-                zmin, logkeep, amin = raster_fwd_cuda(tab, agg, win,
-                                                      inv_blur, znear)
-            else:
-                zmin, logkeep, amin = raster_fwd_plain(tab, win, inv_blur,
-                                                       znear)
-            zbuf = torch.where(zmin >= BIG,
-                               torch.full_like(zmin, float("inf")), zmin)
-            sil = 1.0 - torch.exp(logkeep)
-        # the backward walks the same tables
-        ctx.save_for_backward(tab, agg, logkeep, amin)
+            zmin, logkeep, amin = raster_fwd_plain(tab, win, inv_blur, znear)
+            zbuf, sil = _window_outputs(zmin, logkeep)
+        # the backward walks the same table
+        ctx.save_for_backward(tab, logkeep, amin)
         ctx.win, ctx.inv_blur, ctx.n_faces = win, inv_blur, planes.shape[1]
         return zbuf, sil
 
     @staticmethod
     def backward(ctx, d_zbuf, d_sil):
-        tab, agg, logkeep, amin = ctx.saved_tensors
-        win, inv_blur = ctx.win, ctx.inv_blur
-        zero = torch.zeros((), dtype=torch.float32, device=tab.device)
-        if d_zbuf is None:
-            d_z = torch.zeros_like(logkeep)
-        else:
-            d_z = torch.where(torch.isfinite(d_zbuf) & (amin >= 0),
-                              d_zbuf, zero).contiguous()
-        if d_sil is None:
-            d_lk = torch.zeros_like(logkeep)
-        else:
-            d_lk = (-torch.exp(logkeep) * d_sil).contiguous()
+        tab, logkeep, amin = ctx.saved_tensors
+        d_z, d_lk = _cotangents(d_zbuf, d_sil, logkeep, amin)
         with torch.no_grad():
-            if tab.is_cuda:
-                dtab = raster_bwd_cuda(tab, agg, d_z, d_lk, amin, win,
-                                       inv_blur)
-            else:
-                dtab = raster_bwd_plain(tab, d_z, d_lk, amin, win, inv_blur)
+            dtab = raster_bwd_plain(tab, d_z, d_lk, amin, ctx.win,
+                                    ctx.inv_blur)
         return (dtab[:, :ctx.n_faces], None, None, None, None, None, None,
                 None, None)
 

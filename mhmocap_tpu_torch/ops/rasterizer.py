@@ -14,9 +14,12 @@ Two distance semantics (`RasterSettings.sil_mode`):
     semantic reference.
 
 Backends (`RasterSettings.backend`):
-  * "auto": the raster kernel pair of `raster_cuda` (hand-written CUDA
-    on a GPU tensor; its plain torch version on a CPU tensor), in
-    "edge_lines" semantics. This is the main path;
+  * "auto": the raster kernel pair of `raster_cuda`, in "edge_lines"
+    semantics. This is the main path. On a GPU tensor the face set-up
+    is a hand-written kernel pair too (`face_setup.raster_faces`: the
+    vertices to the kernels' tables and back); on a CPU tensor the
+    set-up is the torch chain (the face gather, `face_planes`, the
+    fold) and the raster the kernels' plain torch version;
   * "brute": all faces against all window pixels in face chunks, in
     either semantics, differentiated by autograd;
   * "tiles": faces binned to tile x tile pixel blocks, each block
@@ -38,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from .cameras import project_points
-from .raster_cuda import raster_planes
+from .face_setup import raster_faces
+from .raster_cuda import face_extents, raster_planes
 
 
 class RasterSettings(NamedTuple):
@@ -427,11 +431,10 @@ def rasterize_bodies(verts, faces, cam_K, settings: RasterSettings):
     (B, win, win); origin (B, 2) int64 window corner in the image).
     """
     uvz = project_points(verts, cam_K, return_depth=True)
-    uv, z = uvz[..., :2], uvz[..., 2]
-    origin = window_origin(uv, z, settings)
-    fuvz = uvz[:, faces]                              # (B, F, 3, 3)
-    fuv, fz = fuvz[..., :2], fuvz[..., 2]
+    origin = window_origin(uvz[..., :2], uvz[..., 2], settings)
     if settings.backend in ("brute", "tiles"):
+        fuvz = uvz[:, faces]                          # (B, F, 3, 3)
+        fuv, fz = fuvz[..., :2], fuvz[..., 2]
         face_ok = torch.all(fz > settings.znear, dim=-1)
         if (settings.backend == "tiles" and settings.use_tiles
                 and settings.window % settings.tile == 0):
@@ -449,13 +452,15 @@ def rasterize_bodies(verts, faces, cam_K, settings: RasterSettings):
         raise ValueError("the raster kernels compute the edge_lines "
                          "semantics; name backend 'brute' or 'tiles' for "
                          f"sil_mode {settings.sil_mode!r}")
-    fuv_l = fuv - origin[:, None, None, :].to(fuv.dtype)
-    planes, bbox, ok_sil, ok_depth = face_planes(fuv_l, fz, settings.znear)
     reach = 3.0 * float(np.sqrt(settings.sil_blur_px2)) + 1.0
+    inv_blur = 1.0 / settings.sil_blur_px2
+    if uvz.is_cuda:
+        zbuf, sil = raster_faces(uvz, origin, faces, settings.window,
+                                 inv_blur, settings.znear, reach)
+        return {"zbuf": zbuf, "sil": sil, "origin": origin}
     zbuf, sil = raster_planes(
-        planes, (bbox, bbox[..., 2] - reach, bbox[..., 3] + reach,
-                 ok_sil, ok_depth),
-        settings.window, 1.0 / settings.sil_blur_px2, settings.znear)
+        *face_extents(uvz, origin, faces, settings.znear, reach),
+        settings.window, inv_blur, settings.znear)
     return {"zbuf": zbuf, "sil": sil, "origin": origin}
 
 

@@ -30,10 +30,11 @@ them. It reports:
     of the unprofiled cycle, the device launches per cycle, each phase
     group's launches, busy and idle time (the trace cut at the mark
     kernels, `phase_marks.split`; a trace that lost marks is reported
-    as unreadable by phase), the raster kernel launches, the mark
-    kernel's launches, the fill-in kernel's counts (calls, round launches,
-    live rounds), the top device rows, the rows of the fill-in kernel
-    and of every sort, and the top host ops by self time.
+    as unreadable by phase), the raster kernel launches beside the face
+    set-up kernels', the mark kernel's launches, the fill-in kernel's
+    counts (calls, round launches, live rounds), the top device rows,
+    the rows of the face set-up and fill-in kernels, of every sort and
+    of every indexing backward, and the top host ops by self time.
 
 The report goes to stdout and, with --out, to that file as well.
 """
@@ -54,6 +55,7 @@ from .config import gpu_name_and_power
 from .engine import optimizer as E
 from .engine.cycle_graph import CycleGraph
 from .engine.predictor import Predictor
+from .ops import face_setup as FS
 from .ops import fillin_cuda as FC
 from .ops import phase_marks as PM
 from .ops.raster_cuda import RasterPlanes
@@ -193,7 +195,8 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
     # two plain ones (a trace may drop its run's tail)
     refresh = -(-(cycle + profiled + 1) // every) * every
     run(refresh - profiled - 1 - cycle)
-    for counts in (RasterPlanes.launches, PM.launches, FC.launches):
+    for counts in (RasterPlanes.launches, FS.launches, PM.launches,
+                   FC.launches):
         counts.reset()
     first, orders = cycle, []
     with profile(activities=[ProfilerActivity.CPU,
@@ -217,15 +220,18 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
            f"{100 - 100 * busy_cycle / (1e3 * per_cycle):.1f}%)")
     report(f"device launches {n_dev} ({n_dev / profiled:.0f} per cycle, "
            f"marks included); raster kernel launches "
-           f"{dict(RasterPlanes.launches)}; mark kernel "
+           f"{dict(RasterPlanes.launches)}; face set-up kernel launches "
+           f"{dict(FS.launches)}; mark kernel "
            f"{dict(PM.launches)}; fill-in kernel {dict(FC.launches)}")
     report("top device rows:")
     for key, ms, cnt in dev[:15]:
         report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
                f"{key[:90]}")
-    report("device rows of the fill-in kernel and of sorts:")
+    report("device rows of the face set-up and fill-in kernels, of sorts "
+           "and of indexing backwards:")
     for key, ms, cnt in dev:
-        if "mhmocap_fill" in key or "sort" in key.lower():
+        if any(w in key.lower() for w in ("mhmocap_faces", "mhmocap_fill",
+                                          "sort", "indexing_backward")):
             report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
                    f"{key[:90]}")
     host = sorted(((k.key, k.self_cpu_time_total / 1e3, k.count) for k in ka

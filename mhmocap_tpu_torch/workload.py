@@ -112,11 +112,10 @@ def make_ts1_like_seq(T=T, N=N, side=SIDE, model=None):
 
 
 @torch.no_grad()
-def posed_raster_tables(model, win, n_bodies, seed, device):
-    """The raster kernels' inputs for n_bodies posed bodies at the depth
-    that fills `win` in a 256x256 image: (tab, agg, lists, bounds,
-    inv_blur, znear), with the JAX package's schedule (lists, bounds),
-    from which the work is counted."""
+def posed_uvz(model, win, n_bodies, seed, device):
+    """n_bodies posed bodies at the depth that fills `win` in a 256x256
+    image, projected: (uvz (B, V, 3), origin (B, 2) int64, settings),
+    the face set-up's inputs."""
     rng = np.random.RandomState(seed)
     poses = torch.as_tensor(0.1 * rng.randn(n_bodies, 72), dtype=torch.float32,
                             device=device)
@@ -128,14 +127,18 @@ def posed_raster_tables(model, win, n_bodies, seed, device):
     st = R.RasterSettings(image_size=(256, 256), window=win)
     K = torch.as_tensor(intrinsics_from_fov((256, 256), 60.0), device=device)
     uvz = project_points(v["verts"], K, return_depth=True)
-    origin = R.window_origin(uvz[..., :2], uvz[..., 2], st)
-    fuvz = uvz[:, model.faces]
-    fuv = fuvz[..., :2] - origin[:, None, None, :].float()
-    planes, bbox, oks, okd = R.face_planes(fuv, fuvz[..., 2], st.znear)
-    reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
+    return uvz, R.window_origin(uvz[..., :2], uvz[..., 2], st), st
+
+
+@torch.no_grad()
+def posed_raster_tables(model, win, n_bodies, seed, device):
+    """The raster kernels' inputs for `posed_uvz`'s bodies: (tab, agg,
+    lists, bounds, inv_blur, znear), with the JAX package's schedule
+    (lists, bounds), from which the work is counted."""
+    uvz, origin, st = posed_uvz(model, win, n_bodies, seed, device)
     inv_blur = 1.0 / st.sil_blur_px2
-    tab, agg = RC._tables(planes, bbox, bbox[..., 2] - reach,
-                          bbox[..., 3] + reach, oks, okd, inv_blur)
+    tab, agg = RC.face_tables(uvz, origin, model.faces, st.znear, inv_blur,
+                              3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0)
     lists, bounds = RC._strip_chunk_lists(agg, win)
     return tab, agg, lists, bounds, inv_blur, st.znear
 

@@ -1,5 +1,6 @@
-"""GPU tests of the port's raster kernels, its fill-in kernel and its
-phase marks (marked `cuda`; they skip without an NVIDIA GPU).
+"""GPU tests of the port's raster kernels, its face set-up kernels, its
+fill-in kernel and its phase marks (marked `cuda`; they skip without an
+NVIDIA GPU).
 
 This file imports torch and the port only, so it also runs where JAX is
 not installed. On a machine with a card:
@@ -13,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import n, rel_err, t
+from torch_parity import degenerate_faces, n, rel_err, t
 
 from mhmocap_tpu_torch.models.smpl import smpl_forward
 from mhmocap_tpu_torch.models.synthetic import make_synthetic_smpl
+from mhmocap_tpu_torch.ops import face_setup as FS
 from mhmocap_tpu_torch.ops import raster_cuda as TC, rasterizer as TR
 from mhmocap_tpu_torch.ops.cameras import intrinsics_from_fov
 
@@ -39,14 +41,10 @@ def _tables(dev, win, seed):
         K = t(intrinsics_from_fov((96, 96), 60.0)).to(dev)
         uvz = TR.project_points(v, K, return_depth=True)
         origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
-        fuvz = uvz[:, model.faces]
-        planes, bbox, oks, okd = TR.face_planes(
-            fuvz[..., :2] - origin[:, None, None].float(), fuvz[..., 2],
-            st.znear)
-        reach = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
         inv_blur = 1.0 / st.sil_blur_px2
-        tab, agg = TC._tables(planes, bbox, bbox[..., 2] - reach,
-                              bbox[..., 3] + reach, oks, okd, inv_blur)
+        tab, agg = TC.face_tables(uvz, origin, model.faces, st.znear,
+                                  inv_blur,
+                                  3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0)
     return tab, agg, inv_blur, rng
 
 
@@ -149,6 +147,96 @@ def test_cuda_autograd_function_matches_cpu(cuda_device):
     assert rel_err(grads["cuda"], grads["cpu"]) < 1e-4
 
 
+def _set_up_inputs(dev, win, edited):
+    """The face set-up's inputs at the fit's call shape: 29 posed
+    full-size bodies (faces preordered) at `win`; `edited` puts each of
+    the degenerate cases on faces of its own, one in the last chunk."""
+    from mhmocap_tpu_torch.workload import posed_uvz
+    model = TR.preorder_faces(make_synthetic_smpl(device=dev))
+    uvz, _, st = posed_uvz(model, win, 29, seed=win, device=dev)
+    if edited:
+        for k, case in enumerate(("zero_edge", "zero_area", "behind",
+                                  "straddle")):
+            uvz = degenerate_faces(uvz, model.faces, case,
+                                   ids=(5 + k, 3000 + k, -1 - k))
+    origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
+    reach_y = 3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0
+    return model.faces, uvz.contiguous(), origin, st, reach_y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edited", [False, True])
+@pytest.mark.parametrize("win", [160, 128])
+def test_cuda_face_setup_matches_plain(cuda_device, win, edited):
+    """Both set-up kernels against their plain version at B=29: tab and
+    agg bit for bit (the same IEEE single operations in the same order,
+    which are the torch chain's); d_uvz to 1e-6 relative norm (the same
+    operations and sum order, but torch's rsqrt and the kernel's rsqrtf
+    may round apart) and bit-identical from one launch to the next; one
+    launch counted a call."""
+    faces, uvz, origin, st, reach_y = _set_up_inputs(cuda_device, win,
+                                                     edited)
+    args = (uvz, origin, faces, st.znear, 1.0 / st.sil_blur_px2, reach_y)
+    before = dict(FS.launches)
+    tab, agg = FS.face_setup_fwd_cuda(*args)
+    ptab, pagg = TC.face_tables(*args)
+    assert torch.equal(tab, ptab) and torch.equal(agg, pagg)
+    rng = np.random.RandomState(win)
+    dtab = t(rng.randn(*tab.shape[::2], 12)).to(cuda_device)
+    gk = FS.face_setup_bwd_cuda(dtab, uvz, origin, faces, st.znear)
+    gp = FS.face_setup_bwd_plain(dtab, uvz, origin, faces, st.znear)
+    assert torch.equal(FS.face_setup_bwd_cuda(dtab, uvz, origin, faces,
+                                              st.znear), gk)
+    assert rel_err(n(gk), n(gp)) < 1e-6
+    assert dict(FS.launches) == {"fwd": before["fwd"] + 1,
+                                 "bwd": before["bwd"] + 2}
+
+
+@pytest.mark.cuda
+def test_cuda_raster_planes_refuses_card_tensors(cuda_device):
+    """RasterPlanes is the CPU path's plain raster: on CUDA tensors it
+    raises, and rasterize_bodies takes RasterFaces there."""
+    planes = torch.zeros((1, 128, 12), device=cuda_device)
+    bbox = torch.zeros((1, 128, 4), device=cuda_device)
+    ok = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        TC.raster_planes(planes, (bbox, bbox[..., 2], bbox[..., 3], ok,
+                                      ok), 32, 1.0, 0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_face_setup_graph_equals_eager(cuda_device):
+    """rasterize_bodies' CUDA path (RasterFaces: the set-up kernels and
+    the raster pair) forward and backward at B=29, window 160, captured
+    in a CUDA graph: a replay equals the eager call bit for bit (zbuf,
+    sil, the vertex gradient) and counts one launch of each kernel."""
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    faces, uvz, origin, st, reach_y = _set_up_inputs(cuda_device, 160, True)
+
+    def run(x):
+        z, s = FS.raster_faces(x, origin, faces, st.window,
+                               1.0 / st.sil_blur_px2, st.znear, reach_y)
+        loss = (torch.sum(s * s)
+                + 0.1 * torch.sum(torch.where(torch.isfinite(z), z, 0.0)))
+        return (z, s) + torch.autograd.grad(loss, x)
+
+    # the graph's input is a leaf first used in the capture's warm-up, on
+    # its side stream (as the fit's parameters are)
+    x = uvz.clone().requires_grad_(True)
+    out = []
+    graph = capture_graph(lambda: out.append(run(x)), cuda_device)
+    for v in out[-1]:
+        v.fill_(-7)
+    FS.launches.reset()
+    TC.RasterPlanes.launches.reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert dict(FS.launches) == {"fwd": 1, "bwd": 1}
+    assert dict(TC.RasterPlanes.launches) == {"fwd": 1, "bwd": 1}
+    ref = run(uvz.clone().requires_grad_(True))
+    assert all(torch.equal(a, b) for a, b in zip(out[-1], ref))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [(40, 56), (72, 104)])
 def test_cuda_fhsog_full_frame_window(cuda_device, monkeypatch, size):
@@ -190,8 +278,9 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     snapshot of the state) against the eager stage1_cycle_eager loop
     from the same init: every cycle's loss and parts, the final params
     and RMSprop state bit-identical; every cycle, a replay, launches
-    each kernel once a chunk a window group (counted by the kernels);
-    the init solve's graph equals its eager loop."""
+    each raster and face set-up kernel once a chunk a window group
+    (counted by the kernels); the init solve's graph equals its eager
+    loop."""
     import dataclasses
     import tempfile
     from mhmocap_tpu_torch.engine import cycle_graph as CG
@@ -222,9 +311,12 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     assert len(g.graphs) == 4
     for c in range(7):
         TC.RasterPlanes.launches.reset()
+        FS.launches.reset()
         g.replay(c)
         assert dict(TC.RasterPlanes.launches) == {"fwd": per_replay,
                                                   "bwd": per_replay}, c
+        assert dict(FS.launches) == {"fwd": per_replay,
+                                     "bwd": per_replay}, c
     assert len(g.graphs) == 4
     assert torch.equal(torch.cat([g.state.losses[:, None], g.state.parts],
                                  1), torch.stack(losses))

@@ -47,3 +47,27 @@ def rel_err(a, b) -> float:
     """||a - b|| / max(||b||, tiny)."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def degenerate_faces(uvz, faces, case, ids=(3, 200, -1)):
+    """A copy of projected vertices uvz (B, V, 3) in which the faces
+    `ids` take a case of the face set-up: "zero_edge" (corner b moved
+    onto a: a zero-length edge and a zero area), "zero_area" (integer
+    corners on one line: the double area is exactly 0), "behind" (every
+    corner at z 0.5, behind a znear of 1), "straddle" (corner c there)
+    or "posed" (no edit)."""
+    uvz = uvz.clone()
+    for f in ids:
+        a, b, c = (int(i) for i in faces[f])
+        if case == "zero_edge":
+            uvz[:, b, :2] = uvz[:, a, :2]
+        elif case == "zero_area":
+            p = torch.round(uvz[:, a, :2])
+            uvz[:, a, :2], uvz[:, b, :2], uvz[:, c, :2] = p, p + 4, p + 8
+        elif case == "behind":
+            uvz[:, [a, b, c], 2] = 0.5
+        elif case == "straddle":
+            uvz[:, c, 2] = 0.5
+        elif case != "posed":
+            raise ValueError(f"unknown case {case!r}")
+    return uvz
