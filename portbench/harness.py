@@ -9,7 +9,8 @@ is the JSON file that entry's config names, its traffic mix is
 metric adds files and entries; nothing here names one.
 
 The run, in order:
-  1. the generator's inputs from the seed (`generate.py`);
+  1. the generator's inputs from the seed (`generate.py`), on frames of
+     the configuration's `image_size` (W, H);
   2. set-up, as `Predictor.fit` runs it (`program.py`): layout and
      windows, the init solve, data, aux and RMSprop state, every
      variant captured, then cycles [0, window_from_cycle) replayed;
@@ -171,10 +172,10 @@ class Facts(NamedTuple):
 
 def _layout(cell: Cell, inputs) -> RF.Layout:
     cfg = cell.config
-    T = cfg["frames"]
+    T, size = cfg["frames"], tuple(cfg["image_size"])
     return RF.Layout(
-        T=T, N=cfg["people"], side=cfg["image_side"], chunk=RF.time_chunk(T),
-        windows=RF.person_windows(inputs["pose2d"], cfg["image_side"],
+        T=T, N=cfg["people"], size=size, chunk=RF.time_chunk(T),
+        windows=RF.person_windows(inputs["pose2d"], size,
                                   cfg["raster_window"],
                                   cfg["joint_confidence_thr"]),
         coefs=tuple(sorted(cfg["coefs"].items())),

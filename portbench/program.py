@@ -61,17 +61,17 @@ class Fit:
         from mhmocap_tpu_torch.models.smpl import smpl_model_from_numpy
 
         self.device = torch.device(device)
-        T, N, S = inputs["pose2d"].shape[0], inputs["pose2d"].shape[1], \
-            inputs["depths"].shape[1]
+        T, N = inputs["pose2d"].shape[:2]
+        H, W = inputs["depths"].shape[1:]
         seq = SequenceArrays(
-            images=np.zeros((T, S, S, 3), np.uint8),
-            depths=inputs["depths"], instances=np.zeros((T, S, S), np.uint8),
+            images=np.zeros((T, H, W, 3), np.uint8),
+            depths=inputs["depths"], instances=np.zeros((T, H, W), np.uint8),
             seg_mask=inputs["seg_mask"], backmasks=inputs["backmasks"],
             pose2d=inputs["pose2d"], cam_smpl=np.zeros((T, N, 3), np.float32),
             poses_smpl=inputs["poses_smpl"], betas_smpl=inputs["betas_smpl"],
             valid_smpl=inputs["valid_smpl"], frame_ids=np.arange(T),
             cam={"K": inputs["K"], "fov": config["fov_deg"], "Kd": None,
-                 "image_size": (S, S)})
+                 "image_size": (W, H)})
         model = smpl_model_from_numpy(body, device=self.device)
         with tempfile.TemporaryDirectory() as tmp:
             pred = Predictor(seq, model, tmp, predictor_args(config, log_len),

@@ -188,9 +188,11 @@ def project(pts, K):
     return torch.cat([uv, z], dim=-1)
 
 
-def intrinsics(side: int, fov_deg: float) -> np.ndarray:
-    """Square image, principal point at the centre, focal length from
-    the field of view."""
-    f = 0.5 * side / np.tan(np.radians(fov_deg) / 2.0)
-    return np.array([[f, 0, side / 2.0], [0, f, side / 2.0], [0, 0, 1]],
+def intrinsics(W: int, H: int, fov_deg: float) -> np.ndarray:
+    """A W x H image: principal point at the centre (W / 2, H / 2),
+    square pixels, focal length f = 0.5 W / tan(fov / 2) from the
+    horizontal field of view `fov_deg`. At W = H this is the square
+    image's f = 0.5 side / tan(fov / 2), to the bit."""
+    f = 0.5 * W / np.tan(np.radians(fov_deg) / 2.0)
+    return np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1]],
                     np.float32)

@@ -45,7 +45,7 @@ class Layout:
 
     T: int
     N: int
-    side: int
+    size: Tuple[int, int]     # the frame (W, H)
     chunk: int
     windows: Tuple[int, ...]
     coefs: Tuple[Tuple[str, float], ...]
@@ -74,7 +74,8 @@ class Layout:
 
     @property
     def blur_px2(self) -> float:
-        s = self.side / 2.0
+        # NDC as PyTorch3D's: the short side spans [-1, 1]
+        s = min(self.size) / 2.0
         return float(self.blur_ndc * s * s)
 
     def coef(self, k: str) -> float:
@@ -94,19 +95,20 @@ def time_chunk(T: int) -> int:
     return min(cands, key=lambda c: (-(-T // c) * c, -c))
 
 
-def person_windows(pose2d: np.ndarray, side: int, base: int,
+def person_windows(pose2d: np.ndarray, size, base: int,
                    thr: float) -> Tuple[int, ...]:
     """Each person's raster window: the 99th percentile over frames of
     1.3x the bbox side of the confident keypoints, in multiples of 16
-    from 48 px up to the image."""
+    from 48 px up to the short side of the frame `size` (W, H)."""
+    W, H = size
     vis = pose2d[..., 2] > thr
     uv = pose2d[..., :2]
-    big = np.float32(2 * side)
+    big = np.float32(W + H)
     lo = np.min(np.where(vis[..., None], uv, big), axis=2)
     hi = np.max(np.where(vis[..., None], uv, -big), axis=2)
     extent = np.max(hi - lo, axis=-1)
     ok = np.sum(vis, axis=-1) >= 2
-    cap = (side // 16) * 16
+    cap = (min(W, H) // 16) * 16
     wins = []
     for n in range(pose2d.shape[1]):
         need = 1.3 * extent[ok[:, n], n]
@@ -434,8 +436,8 @@ def chunk_loss(params, i: int, body: Body, data: Data, scene, dvf,
                lay: Layout, work: Optional[list] = None):
     """Loss of frame chunk i and its parts (len(PARTS),); with `work`
     a list, each raster call appends (window, bodies, Work)."""
-    C, N, H = lay.chunk, lay.N, lay.side
-    W = H
+    C, N = lay.chunk, lay.N
+    W, H = lay.size
     dev = data.K.device
     t0 = i * C
     hidx = torch.clamp(t0 - 1 + torch.arange(C + 1, device=dev), min=0)

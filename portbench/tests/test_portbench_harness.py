@@ -10,6 +10,7 @@ eager bodies and the raster kernels' plain version; the test marked
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import re
 import shutil
@@ -26,6 +27,8 @@ from portbench import check as CK
 from portbench import harness as H
 from portbench import work as W
 from portbench.generate import generate
+from portbench.reference.body import body_arrays, body_tensors, intrinsics, \
+    skin
 from portbench.reference.raster import Work, face_planes, raster_window
 from portbench.trace import Span
 
@@ -35,12 +38,24 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def tiny_cell(**limits) -> H.Cell:
-    """ts1-fit's files at a size the CPU runs in about a minute."""
+# tiny frames (W, H) and their people: square, landscape, portrait
+FRAMES = {"48x48": ((48, 48), 2), "64x36": ((64, 36), 3),
+          "36x64": ((36, 64), 2)}
+# where a third person stands, beside the traffic's two
+THIRD = {"depth_m": 4.9, "x_m": 0.8}
+
+
+def tiny_cell(frame: str = "48x48", **limits) -> H.Cell:
+    """ts1-fit's files at a size the CPU runs in about a minute, on one
+    of FRAMES; a third person stands at THIRD."""
     cell = H.load_cell("ts1-fit", ROOT)
-    cfg = dict(cell.config, frames=6, people=2, image_side=48,
+    size, people = FRAMES[frame]
+    cfg = dict(cell.config, frames=6, people=people, image_size=list(size),
                raster_window=48, body=dict(num_vertices=256, seed=0))
-    return cell._replace(name="tiny", config=cfg,
+    traffic = dict(cell.traffic)
+    if people > len(traffic["depth_m"]):
+        traffic.update({k: traffic[k] + [v] for k, v in THIRD.items()})
+    return cell._replace(name="tiny", config=cfg, traffic=traffic,
                          limits=dict(cell.limits, **limits))
 
 
@@ -61,6 +76,70 @@ def test_generator_is_deterministic_per_seed_and_differs_across_seeds():
     # what the seed does not draw is the same: sizes, masks, camera
     for k in ("seg_mask", "backmasks", "K"):
         np.testing.assert_array_equal(a[k], c[k])
+
+
+# ts1-fit's inputs at seed 2**31 + 19 on the CPU, one thread, taken on the
+# generator of square frames (`image_side`) before frames became W x H.
+# The skinning's matmuls and the normal draws round by the CPU's kernels:
+# AVX2 and AVX512 give one set of digests, the scalar kernels another.
+TS1_DIGESTS = {
+    "depths": "f37f4ade2f251f54ead70bdc13fbd2a89e96acbf3f5ff87a91be11ae84236ed0",
+    "seg_mask": "e4149e4fddaa9ecce9a4cd453e85545c0d1ff3b30080cd48ec987f02614181df",
+    "backmasks": "d5a188280039dcd2f7e33dbc0a1399eed92d531cd8ead7eb4f9d121ebbcb2dca",
+    "pose2d": "6e15d13af33c02b19a7e8c986a8e2ec0b4e8306ac553192d976a269c8da8b4a8",
+    "poses_smpl": "4e00488253ce18b65ae731e13f01818cb6195c960496495af98a6685bafc09be",
+    "betas_smpl": "d835caaa539d1552b50d220019384d086818b3e27e8b25fc8ae39229b0542add",
+    "valid_smpl": "8eaa39b7874c5284e940565e93c32a3b1e0d48a14a58b9d53d0dfa89e3274d5b",
+    "K": "4701ba30e42f400c523ae74db7758d1e623e98425db11474766f94315da986f9",
+}
+TS1_DIGESTS_SCALAR = dict(
+    TS1_DIGESTS,
+    depths="fc481e8cb32249a05f68a299243078478c6f3ca7f657c7681ee8197e7108ff2a",
+    pose2d="38ea3e0fa8663fb6903d5a2dc6856f3f47a7c9074226a52b385b0dfbc2d9c34a",
+    poses_smpl="3ac14455dd47ec8b77ee6fc9f0d568b86665ccb6301f0b8aee04abaf2e019a80")
+
+
+def test_ts1_fit_inputs_camera_and_layout_are_the_square_generators():
+    """The square path unchanged: at W = H every array the generator
+    gives ts1-fit, K among them, and the reference's windows, chunk and
+    blur are those of the generator of square frames, bit for bit."""
+    cap = torch.backends.cpu.get_cpu_capability()
+    want = TS1_DIGESTS_SCALAR if cap == "DEFAULT" else TS1_DIGESTS
+    cell = H.load_cell("ts1-fit", ROOT)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        inputs, _ = generate(cell.config, cell.traffic, 2 ** 31 + 19, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    got = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+           for k, v in inputs.items()}
+    assert got == want, cap
+    assert inputs["K"].tolist() == [
+        [np.float32(221.7025), 0.0, 128.0], [0.0, np.float32(221.7025), 128.0],
+        [0.0, 0.0, 1.0]]
+    lay = H._layout(cell, inputs)
+    assert (lay.size, lay.windows, lay.chunk) == ((256, 256), (160, 128), 29)
+    assert lay.blur_px2 == 0.32768
+
+
+@pytest.mark.parametrize("frame", list(FRAMES))
+def test_frames_are_w_by_h(frame):
+    """Depths and masks are (H, W), the camera's centre (W / 2, H / 2),
+    its focal length from the horizontal field of view; the windows
+    are capped by the short side."""
+    cell = tiny_cell(frame)
+    (w, h), n = FRAMES[frame]
+    inputs, _ = generate(cell.config, cell.traffic, 5, "cpu")
+    assert inputs["depths"].shape == (6, h, w)
+    assert inputs["seg_mask"].shape == (6, n, h, w)
+    assert inputs["backmasks"].shape == (6, h, w)
+    np.testing.assert_array_equal(inputs["K"], intrinsics(w, h, 60.0))
+    assert inputs["K"][0, 2] == w / 2 and inputs["K"][1, 2] == h / 2
+    assert inputs["K"][0, 0] == np.float32(0.5 * w / np.tan(np.pi / 6))
+    lay = H._layout(cell, inputs)
+    assert max(lay.windows) <= min(w, h) // 16 * 16
+    assert lay.blur_px2 == pytest.approx(2e-5 * (min(w, h) / 2) ** 2)
 
 
 # --- the work counts ------------------------------------------------------
@@ -102,6 +181,35 @@ def test_raster_work_matches_a_hand_count():
     assert W.raster_bytes("bwd", 1, 1, win) == 64 + 3 * 256 * 4 + 48
     assert W.least_seconds(67e12, 0) == pytest.approx(1.0)
     assert W.least_seconds(0, 3.35e12) == pytest.approx(1.0)
+
+
+def test_raster_window_clamps_its_origin_by_the_frames_height():
+    """At a 64x36 frame a body near the bottom edge gets its window's
+    origin clamped to H - win, not W - win, and its raster is the
+    port's plain raster's at the same inputs: the same origin, the same
+    z-buffer bit for bit, the silhouette to the rounding of the order
+    in which the log-coverage is summed."""
+    from mhmocap_tpu_torch.ops.rasterizer import RasterSettings, \
+        rasterize_bodies
+    w, h, win = 64, 36, 32
+    K = torch.as_tensor(intrinsics(w, h, 60.0))
+    body = body_tensors(body_arrays(2048, 0), "cpu")
+    g = torch.Generator().manual_seed(3)
+    v, _ = skin(body, torch.zeros(2, 10), 0.1 * torch.randn(
+        2, 72, generator=g))
+    # centred at 28 and 27 px of 36 rows; the first in mid-frame across
+    verts = v + torch.tensor([[[0.0, 0.63, 3.5]], [[-0.9, 0.5, 3.0]]])
+    st = RasterSettings(image_size=(w, h), window=win)
+    zbuf, sil, origin, wk = raster_window(verts, body.faces, K, win, (w, h),
+                                          st.znear, st.sil_blur_px2,
+                                          count=True)
+    assert origin[:, 1].tolist() == [h - win] * 2
+    assert 0 < int(origin[0, 0]) < w - win
+    assert wk.winners > 100
+    port = rasterize_bodies(verts, body.faces, K, st)
+    assert torch.equal(port["origin"], origin)
+    assert torch.equal(port["zbuf"], zbuf)
+    torch.testing.assert_close(port["sil"], sil, rtol=0, atol=1e-6)
 
 
 def test_skin_flops_hand_count():
@@ -262,15 +370,18 @@ def _plant(monkeypatch, fault: str):
 
 
 @pytest.mark.parametrize("fault", ["sound", "frozen", "halfbatch", "altered"])
-def test_a_run_is_correct_and_each_fault_is_caught(monkeypatch, fault):
+@pytest.mark.parametrize("frame", list(FRAMES))
+def test_a_run_is_correct_and_each_fault_is_caught(monkeypatch, frame, fault):
     torch.set_num_threads(4)
     if fault != "sound":
         _plant(monkeypatch, fault)
-    out = H.run_cell(tiny_cell(), 2 ** 31 + 7, 0.2, False, "cpu",
+    out = H.run_cell(tiny_cell(frame), 2 ** 31 + 7, 0.2, False, "cpu",
                      time.time(), log=lambda *a: None)
     assert list(out) == ["correct", "attempted", "failed", "metrics",
                          "device", "checks"]
     assert out["correct"] is (fault == "sound"), out["checks"]
+    # the port's windows and chunk are the reference's
+    assert out["checks"]["layout"]["value"] == 0.0
     assert set(out["metrics"]) == {"fit_frame_cycles_per_s",
                                    "peak_device_gib", "setup_s"}
     assert set(out["device"]) == {"platform", "kind", "count",
@@ -310,12 +421,13 @@ def _judge_controls(cell: H.Cell, out, names):
         assert not ok, (name, rows)
 
 
-def test_controls_are_not_correct_on_the_cpu():
+@pytest.mark.parametrize("frame", ["48x48", "64x36"])
+def test_controls_are_not_correct_on_the_cpu(frame):
     """The controls of a tiny cell on the CPU, judged by the limits the
     harness judges a run by; TF32 is a card's precision and is left to
     the card's test."""
     torch.set_num_threads(4)
-    cell = tiny_cell()
+    cell = tiny_cell(frame)
     out = H.run_cell(cell, 2 ** 31 + 7, 0.2, False, "cpu", time.time(),
                      controls=True, log=lambda *a: None)
     _judge_controls(cell, out, ("halfbatch", "altered", "frozen"))

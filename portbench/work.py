@@ -76,16 +76,17 @@ def cycle_flops(lay, raster_calls, num_vertices: int):
     optimizer."""
     bodies = lay.num_chunks * (lay.chunk + 1) * lay.N
     skin = skin_flops(num_vertices)
-    side2 = lay.side * lay.side
+    W, H = lay.size
+    pixels = W * H
     items = {
         "skin_fwd": bodies * skin,
         "skin_bwd": bodies * skin,
         "skin_refresh": lay.padded * lay.N * skin / lay.filter_every,
         "raster_fwd": sum(raster_ops("fwd", w) for _, _, w in raster_calls),
         "raster_bwd": sum(raster_ops("bwd", w) for _, _, w in raster_calls),
-        "contact": lay.padded * lay.N * side2 * 8,
+        "contact": lay.padded * lay.N * pixels * 8,
         "window_losses": 50 * sum(b * win * win
                                   for win, b, _ in raster_calls),
-        "occlusion": lay.padded * 2 * lay.N * lay.N * side2,
+        "occlusion": lay.padded * 2 * lay.N * lay.N * pixels,
     }
     return items
