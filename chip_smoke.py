@@ -326,8 +326,8 @@ def _reset_counts():
     counters."""
     from mhmocap_tpu_torch.ops import face_setup as FS
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
-    RasterPlanes.launches.reset()
+    from mhmocap_tpu_torch.ops import raster_cuda as RC
+    RC.launches.reset()
     FS.launches.reset()
     FC.launches.reset()
 
@@ -342,8 +342,8 @@ def _raster_counts(where):
     forward and, if differentiated, one set-up backward, so each set-up
     count must equal the raster's."""
     from mhmocap_tpu_torch.ops import face_setup as FS
-    from mhmocap_tpu_torch.ops.raster_cuda import RasterPlanes
-    raster, faces = dict(RasterPlanes.launches), dict(FS.launches)
+    from mhmocap_tpu_torch.ops import raster_cuda as RC
+    raster, faces = dict(RC.launches), dict(FS.launches)
     if faces != raster:
         raise AssertionError(f"{where}: face set-up launches {faces} are "
                              f"not the raster launches {raster}")
@@ -532,10 +532,10 @@ def _graph_replay_check(tab, agg, dz, dlk, win, inv_blur, znear, fwd, bwd):
     graph = capture_graph(body, tab.device)
     for t in (*out["fwd"], out["bwd"]):
         t.fill_(-7)
-    RC.RasterPlanes.launches.reset()
+    RC.launches.reset()
     graph.replay()
     torch.cuda.synchronize()
-    launches = dict(RC.RasterPlanes.launches)
+    launches = dict(RC.launches)
     same = (all(torch.equal(a, b) for a, b in zip(out["fwd"], fwd))
             and torch.equal(out["bwd"], bwd))
     print(f"[3 kernels] B={tab.shape[0]} win {win}: forward + backward "
@@ -583,12 +583,11 @@ def _face_setup_check(faces, uvz, origin, st):
     """Phase 3: the face set-up kernels against their plain version at
     one call shape. Returns the kernel's tables and the gaps."""
     from mhmocap_tpu_torch.ops import face_setup as FS
-    from mhmocap_tpu_torch.ops import raster_cuda as RC
     B, win = uvz.shape[0], st.window
     args = _setup_args(faces, uvz, origin, st)
     FS.launches.reset()
     tab, agg = FS.face_setup_fwd_cuda(*args)
-    ptab, pagg = RC.face_tables(*args)
+    ptab, pagg = FS.face_tables(*args)
     rng = np.random.RandomState(win + B)
     dtab = torch.as_tensor(rng.randn(B, tab.shape[2], 12),
                            dtype=torch.float32, device=uvz.device)
@@ -620,7 +619,6 @@ def _face_setup_timing(faces, uvz, origin, st, tab, agg, checked):
     """Phase 3a: the set-up kernels timed at one call shape beside their
     bound, their plain version and the torch chain they replace."""
     from mhmocap_tpu_torch.ops import face_setup as FS
-    from mhmocap_tpu_torch.ops import raster_cuda as RC
     from mhmocap_tpu_torch.workload import cuda_ms
     dev = uvz.device
     B, win = uvz.shape[0], st.window
@@ -631,7 +629,7 @@ def _face_setup_timing(faces, uvz, origin, st, tab, agg, checked):
     x = uvz.clone().requires_grad_(True)
 
     def chain():
-        t, _ = RC.face_tables(x, *args[1:])
+        t, _ = FS.face_tables(x, *args[1:])
         torch.autograd.grad(t[:, :12], x, dtab.transpose(1, 2))
 
     fs32 = FS.incidence(faces, uvz.shape[1], dev)
@@ -640,7 +638,7 @@ def _face_setup_timing(faces, uvz, origin, st, tab, agg, checked):
     t = {"fwd": _graph_ms(lambda: FS.face_setup_fwd_cuda(*args), dev),
          "bwd": _graph_ms(lambda: FS.face_setup_bwd_cuda(dtab, *args[:4]),
                           dev),
-         "plain_fwd": cuda_ms(lambda: RC.face_tables(*args), 2),
+         "plain_fwd": cuda_ms(lambda: FS.face_tables(*args), 2),
          "plain_bwd": cuda_ms(lambda: FS.face_setup_bwd_plain(
              dtab, *args[:4]), 2),
          "chain": _graph_ms(chain, dev, 5)}

@@ -1,28 +1,26 @@
-"""The raster's face set-up as a hand-written CUDA kernel pair.
+"""The raster's face set-up: from projected vertices to the raster
+kernels' tables and back, as a hand-written CUDA kernel pair and its
+plain torch version.
 
-On CUDA tensors `rasterize_bodies` (the "auto" backend) goes from the
-projected vertices uvz (B, V, 3) and the window origins straight to the
-raster kernels' tables and back: `RasterFaces`, one autograd.Function
-that launches the set-up's forward kernel, the raster kernel pair and
-the set-up's backward kernel (`csrc/face_setup.cu`; its header says what
-each computes, what bounds it and how the design answers). On CPU
-tensors the raster runs the torch chain this pair replaces:
-`raster_cuda.face_extents` (the face gather, `rasterizer.face_planes`)
-and `raster_cuda.RasterPlanes` (which folds with `_fold_pack`),
-differentiated by autograd.
+The set-up is the first stage of `rasterizer.RasterFaces` forward and
+the last of its backward (its docstring names the four kernel / plain
+pairs). The kernels live in `csrc/face_setup.cu` (its header says what
+each computes, what bounds it and how the design answers). This module
+holds what surrounds them:
 
-This module holds what surrounds the kernels:
-
+  * `face_planes`, `face_extents` and `face_tables`: the set-up in
+    torch, from projected vertices (the face gather and `face_planes`)
+    to the planes and extents, then the fold (`raster_cuda._tables`).
+    `face_tables` is the forward kernel's plain version, and autograd
+    through `face_extents`' planes the backward's on CPU tensors;
   * `incidence`: each vertex's (face, corner) incidences in ascending
     order (a CSR), and the faces as int32, built once per face table
     and device on the host and never evicted, since a captured CUDA
     graph reads them at their addresses;
-  * the plain torch version of the backward kernel,
-    `face_setup_bwd_plain` (the analytic derivative of each face's
-    folded coefficients, summed per vertex over the CSR in the
-    kernel's order), which the CPU tests hold to the chain's autograd,
-    and the card to the kernel. The forward's plain version is the
-    chain itself, `raster_cuda.face_tables`;
+  * `face_setup_bwd_plain`, the backward kernel's reference in the
+    kernel's own order (the analytic derivative of each face's folded
+    coefficients, summed per vertex over the CSR), which the CPU tests
+    hold to the chain's autograd, and the card to the kernel;
   * the launchers and `launches` (`cuda_lib.LaunchCounts`: each kernel
     counts its own launches on the device);
   * the load of the library (`cuda_lib.load_library`: nvcc for sm_90a
@@ -44,10 +42,79 @@ from .cuda_lib import LaunchCounts, build_library, load_library, stream_ptr
 
 _SOURCES = ("face_setup.cu",)
 _HEADERS = ("raster_common.cuh",)
-EDGE_EPS = 1e-12    # face_planes' clamp of an edge's squared length
-AREA_EPS = 1e-9     # face_planes' least |double area| with a z plane
+EDGE_EPS = 1e-12    # the clamp of an edge's squared length
+AREA_EPS = 1e-9     # the least |double area| with a z plane
 
 launches = LaunchCounts(("fwd", "bwd"))
+
+
+# ---------------------------------------------------------------------------
+# Plain torch version of the forward kernel
+# ---------------------------------------------------------------------------
+
+def face_planes(fuv, fz, znear, eps: float = EDGE_EPS):
+    """Per-face affine plane coefficients.
+
+    fuv: (..., F, 3, 2) screen-space face vertices; fz: (..., F, 3).
+    Returns (planes (..., F, 12), bbox (..., F, 4) detached,
+    ok_sil (..., F), ok_depth (..., F)). Columns are the three
+    inside-negative unit edge lines (nx, ny, c) and the z plane
+    (za, zb, zc); bbox = (lox, hix, loy, hiy).
+    """
+    ax, ay = fuv[..., 0, 0], fuv[..., 0, 1]
+    bx, by = fuv[..., 1, 0], fuv[..., 1, 1]
+    cx, cy = fuv[..., 2, 0], fuv[..., 2, 1]
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    sgn = torch.where(area < 0, -1.0, 1.0).to(fuv.dtype)
+
+    def edge(x0, y0, x1, y1):
+        ex, ey = x1 - x0, y1 - y0
+        inv_len = torch.rsqrt(torch.clamp(ex * ex + ey * ey, min=eps))
+        return (sgn * ey * inv_len, -sgn * ex * inv_len,
+                sgn * (ex * y0 - ey * x0) * inv_len)
+
+    n0x, n0y, c0 = edge(ax, ay, bx, by)
+    n1x, n1y, c1 = edge(bx, by, cx, cy)
+    n2x, n2y, c2 = edge(cx, cy, ax, ay)
+
+    ok_area = torch.abs(area) > AREA_EPS
+    inv_a = (torch.where(ok_area, 1.0, 0.0).to(fuv.dtype)
+             / torch.where(ok_area, area, torch.ones_like(area)))
+    z0, z1, z2 = fz[..., 0], fz[..., 1], fz[..., 2]
+    za = (z0 * (by - cy) + z1 * (cy - ay) + z2 * (ay - by)) * inv_a
+    zb = (z0 * (cx - bx) + z1 * (ax - cx) + z2 * (bx - ax)) * inv_a
+    zc = (z0 * (bx * cy - by * cx) + z1 * (cx * ay - cy * ax)
+          + z2 * (ax * by - ay * bx)) * inv_a
+
+    planes = torch.stack([n0x, n0y, c0, n1x, n1y, c1, n2x, n2y, c2,
+                          za, zb, zc], dim=-1)
+    u, v = fuv[..., 0].detach(), fuv[..., 1].detach()
+    bbox = torch.stack([u.amin(dim=-1), u.amax(dim=-1),
+                        v.amin(dim=-1), v.amax(dim=-1)], dim=-1)
+    ok_sil = torch.all(fz > znear, dim=-1)
+    return planes, bbox, ok_sil, ok_sil & ok_area
+
+
+def face_extents(uvz, origin, faces, znear: float, reach_y: float):
+    """The per-face planes of B bodies from their projected vertices uvz
+    (B, V, 3), window origins (B, 2) int64 and faces (F, 3): (planes
+    (B, F, 12), (bbox, lo_y, hi_y, ok_sil, ok_depth)), with the y
+    extents reach_y past the bbox. Differentiable in uvz."""
+    fuvz = uvz[:, faces]                                 # (B, F, 3, 3)
+    planes, bbox, ok_sil, ok_depth = face_planes(
+        fuvz[..., :2] - origin[:, None, None, :].to(uvz.dtype),
+        fuvz[..., 2], znear)
+    return planes, (bbox, bbox[..., 2] - reach_y, bbox[..., 3] + reach_y,
+                    ok_sil, ok_depth)
+
+
+def face_tables(uvz, origin, faces, znear: float, inv_blur: float,
+                reach_y: float):
+    """The raster kernels' inputs (tab (B, 16, F_pad), agg (B, nc, 4))
+    from `face_extents`' planes: the plain version of the forward
+    kernel."""
+    planes, extents = face_extents(uvz, origin, faces, znear, reach_y)
+    return RC._tables(planes, *extents, inv_blur)
 
 
 # never evicted: a captured CUDA graph reads it at its address
@@ -199,7 +266,7 @@ def _check_inputs(uvz, origin):
 def face_setup_fwd_cuda(uvz, origin, faces, znear: float, inv_blur: float,
                         reach_y: float):
     """Launch the forward kernel -> (tab (B, 16, F_pad), agg (B, nc, 4)),
-    as `raster_cuda.face_tables`; counts its launch in `launches`."""
+    as `face_tables`; counts its launch in `launches`."""
     _check_inputs(uvz, origin)
     B, V = uvz.shape[:2]
     faces32, _, _ = incidence(faces, V, uvz.device)
@@ -242,45 +309,3 @@ def face_setup_bwd_cuda(dtab, uvz, origin, faces, znear: float):
         raise RuntimeError(f"face set-up backward kernel launch failed: "
                            f"CUDA error {err}")
     return duvz
-
-
-# ---------------------------------------------------------------------------
-# autograd.Function
-# ---------------------------------------------------------------------------
-
-class RasterFaces(torch.autograd.Function):
-    """(zbuf, sil) of B bodies' windows from their projected vertices uvz
-    (B, V, 3) (differentiated), window origins (B, 2) int64 and faces
-    (F, 3), on CUDA tensors: the set-up's forward kernel, the raster
-    kernel pair, the set-up's backward kernel. reach_y is the silhouette
-    reach of the tables' y extents (`rasterize_bodies`), as in
-    `raster_cuda.face_tables`."""
-
-    @staticmethod
-    def forward(ctx, uvz, origin, faces, win, inv_blur, znear, reach_y):
-        RC._check_window(win)
-        tab, agg = face_setup_fwd_cuda(uvz, origin, faces, znear, inv_blur,
-                                       reach_y)
-        zmin, logkeep, amin = RC.raster_fwd_cuda(tab, agg, win, inv_blur,
-                                                 znear)
-        ctx.save_for_backward(uvz, origin, tab, agg, logkeep, amin)
-        ctx.faces, ctx.win, ctx.inv_blur, ctx.znear = faces, win, inv_blur, \
-            znear
-        return RC._window_outputs(zmin, logkeep)
-
-    @staticmethod
-    def backward(ctx, d_zbuf, d_sil):
-        uvz, origin, tab, agg, logkeep, amin = ctx.saved_tensors
-        d_z, d_lk = RC._cotangents(d_zbuf, d_sil, logkeep, amin)
-        dtab = RC.raster_bwd_cuda(tab, agg, d_z, d_lk, amin, ctx.win,
-                                  ctx.inv_blur)
-        duvz = face_setup_bwd_cuda(dtab, uvz, origin, ctx.faces, ctx.znear)
-        return duvz, None, None, None, None, None, None
-
-
-def raster_faces(uvz, origin, faces, win: int, inv_blur: float,
-                 znear: float, reach_y: float):
-    """Functional entry of `RasterFaces`: (zbuf, sil), each
-    (B, win, win)."""
-    return RasterFaces.apply(uvz.contiguous(), origin.contiguous(), faces,
-                             win, inv_blur, znear, reach_y)

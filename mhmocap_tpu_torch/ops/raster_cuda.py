@@ -26,21 +26,17 @@ design answers). This module holds what surrounds them:
     rectangle, or whose invalid mark, puts every pixel of it where the
     term is exactly 0 and nothing is covered; `_fwd_work` counts the
     pixel-face pairs the kernel still evaluates;
-  * `face_extents` and `face_tables`: the face set-up in torch, from
-    projected vertices to the planes and extents (the face gather and
-    `rasterizer.face_planes`) and on to the tables (`_tables`). It is
-    the CPU path's set-up and the plain version of the set-up's forward
-    kernel (`face_setup.py`), which does it all on CUDA tensors;
   * the plain torch version of both kernels, over all faces in face
-    chunks (the CPU path, and the reference the card is held to);
-  * `RasterPlanes`, the autograd.Function of the CPU path: the plain
-    version on CPU tensors, differentiated by autograd up to the
-    planes. CUDA tensors take `face_setup.RasterFaces`, which launches
-    the set-up kernels and the raster pair;
-  * `RasterPlanes.launches` (`cuda_lib.LaunchCounts`): each kernel
-    counts its own launches on the device (raster_common.cuh
-    count_launch), so a launch recorded in a CUDA graph counts at every
-    replay;
+    chunks (the CPU path's raster stages, and the reference the card is
+    held to);
+  * `_tables`, `_window_outputs` and `_cotangents`: the fold of
+    `face_setup.face_extents`' planes into the tables, and the per-pixel
+    glue between the kernels and `rasterizer.RasterFaces`, the one
+    autograd.Function that runs them (its docstring names the four
+    kernel / plain pairs);
+  * `launches` (`cuda_lib.LaunchCounts`): each kernel counts its own
+    launches on the device (raster_common.cuh count_launch), so a
+    launch recorded in a CUDA graph counts at every replay;
   * the load of the library (`cuda_lib.build_library`: nvcc for sm_90a
     into build/ at first use), bound with ctypes.
 
@@ -80,6 +76,8 @@ FWD_WARP_COLS = 8
 
 _SOURCES = ("raster_fwd.cu", "raster_bwd.cu")
 _HEADERS = ("raster_common.cuh",)
+
+launches = LaunchCounts(("fwd", "bwd"))
 
 
 def _n_xb(win: int) -> int:
@@ -481,7 +479,7 @@ def _check_window(win: int):
 def raster_fwd_cuda(tab, agg, win: int, inv_blur: float, znear: float):
     """Launch the forward kernel -> (zmin, logkeep, amin) (B, win, win).
     The kernel finds each cell's chunks from agg itself and writes every
-    pixel once, and counts its launch in `RasterPlanes.launches`."""
+    pixel once, and counts its launch in `launches`."""
     return _launch_fwd(tab, agg, win, inv_blur, znear)
 
 
@@ -503,7 +501,7 @@ def _launch_fwd(tab, agg, win: int, inv_blur: float, znear: float,
     err = (lib or _library()).mhmocap_raster_fwd(
         tab.data_ptr(), agg.data_ptr(), zmin.data_ptr(), logkeep.data_ptr(),
         amin.data_ptr(), B, F_pad, win, _n_xb(win), float(inv_blur),
-        float(znear), RasterPlanes.launches.pointer("fwd", dev),
+        float(znear), launches.pointer("fwd", dev),
         stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster forward kernel launch failed: CUDA "
@@ -529,7 +527,7 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
     """Launch the backward kernel -> d_planes (B, F_pad, 12). The kernel
     writes every entry once (chunks that reach no cell get zeros), so
     the output is not zero-filled first, and counts its launch in
-    `RasterPlanes.launches`."""
+    `launches`."""
     _check_window(win)
     B, _, F_pad = tab.shape
     nc = F_pad // FACE_CHUNK
@@ -546,7 +544,7 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
     err = _library().mhmocap_raster_bwd(
         tab.data_ptr(), agg.data_ptr(), dz.data_ptr(), dlk.data_ptr(),
         amin.data_ptr(), dplanes.data_ptr(), B, F_pad, win, _n_xb(win),
-        float(inv_blur), RasterPlanes.launches.pointer("bwd", dev),
+        float(inv_blur), launches.pointer("bwd", dev),
         stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"raster backward kernel launch failed: CUDA "
@@ -555,7 +553,7 @@ def raster_bwd_cuda(tab, agg, dz, dlk, amin, win: int, inv_blur: float):
 
 
 # ---------------------------------------------------------------------------
-# autograd.Function
+# Tables and per-pixel glue of rasterizer.RasterFaces
 # ---------------------------------------------------------------------------
 
 def _reach(inv_blur: float) -> float:
@@ -567,29 +565,6 @@ def _reach(inv_blur: float) -> float:
 def _tables(planes, bbox, lo_y, hi_y, ok_sil, ok_depth, inv_blur):
     return _fold_pack(planes, bbox, ok_sil, ok_depth, lo_y, hi_y,
                       _reach(inv_blur))
-
-
-def face_extents(uvz, origin, faces, znear: float, reach_y: float):
-    """The per-face planes of B bodies from their projected vertices uvz
-    (B, V, 3), window origins (B, 2) int64 and faces (F, 3): (planes
-    (B, F, 12), (bbox, lo_y, hi_y, ok_sil, ok_depth)), with the y
-    extents reach_y past the bbox. Differentiable in uvz."""
-    from .rasterizer import face_planes
-    fuvz = uvz[:, faces]                                 # (B, F, 3, 3)
-    planes, bbox, ok_sil, ok_depth = face_planes(
-        fuvz[..., :2] - origin[:, None, None, :].to(uvz.dtype),
-        fuvz[..., 2], znear)
-    return planes, (bbox, bbox[..., 2] - reach_y, bbox[..., 3] + reach_y,
-                    ok_sil, ok_depth)
-
-
-def face_tables(uvz, origin, faces, znear: float, inv_blur: float,
-                reach_y: float):
-    """The raster kernels' inputs (tab (B, 16, F_pad), agg (B, nc, 4))
-    from `face_extents`' planes: the torch chain of the face set-up,
-    and the plain version of its forward kernel."""
-    planes, extents = face_extents(uvz, origin, faces, znear, reach_y)
-    return _tables(planes, *extents, inv_blur)
 
 
 def _window_outputs(zmin, logkeep):
@@ -615,54 +590,3 @@ def _cotangents(d_zbuf, d_sil, logkeep, amin):
     else:
         d_lk = (-torch.exp(logkeep) * d_sil).contiguous()
     return d_z, d_lk
-
-
-class RasterPlanes(torch.autograd.Function):
-    """(zbuf, sil) of B bodies' windows from per-face planes, on CPU
-    tensors: the kernels' plain version.
-
-    planes (B, F, 12) (differentiated); bbox (B, F, 4), lo_y/hi_y (B, F)
-    reach-expanded y extents, ok_sil/ok_depth (B, F) bool (data only).
-    zbuf is +inf where no face covers. CUDA tensors raise: on the card
-    the raster runs `face_setup.RasterFaces`. `launches` counts the
-    kernels' launches (`LaunchCounts`), whoever launches them.
-    """
-
-    launches = LaunchCounts(("fwd", "bwd"))
-
-    @staticmethod
-    def forward(ctx, planes, bbox, lo_y, hi_y, ok_sil, ok_depth, win,
-                inv_blur, znear):
-        if planes.is_cuda:
-            raise ValueError("RasterPlanes runs the plain raster on CPU "
-                             "tensors; CUDA tensors take "
-                             "face_setup.RasterFaces")
-        _check_window(win)
-        with torch.no_grad():
-            tab, agg = _tables(planes, bbox, lo_y, hi_y, ok_sil, ok_depth,
-                               inv_blur)
-            zmin, logkeep, amin = raster_fwd_plain(tab, win, inv_blur, znear)
-            zbuf, sil = _window_outputs(zmin, logkeep)
-        # the backward walks the same table
-        ctx.save_for_backward(tab, logkeep, amin)
-        ctx.win, ctx.inv_blur, ctx.n_faces = win, inv_blur, planes.shape[1]
-        return zbuf, sil
-
-    @staticmethod
-    def backward(ctx, d_zbuf, d_sil):
-        tab, logkeep, amin = ctx.saved_tensors
-        d_z, d_lk = _cotangents(d_zbuf, d_sil, logkeep, amin)
-        with torch.no_grad():
-            dtab = raster_bwd_plain(tab, d_z, d_lk, amin, ctx.win,
-                                    ctx.inv_blur)
-        return (dtab[:, :ctx.n_faces], None, None, None, None, None, None,
-                None, None)
-
-
-def raster_planes(planes, extents, win: int, inv_blur: float,
-                  znear: float):
-    """Functional entry: extents = (bbox, lo_y, hi_y, ok_sil, ok_depth).
-    Returns (zbuf, sil), each (B, win, win)."""
-    bbox, lo_y, hi_y, ok_sil, ok_depth = extents
-    return RasterPlanes.apply(planes, bbox, lo_y, hi_y, ok_sil, ok_depth,
-                              win, inv_blur, znear)

@@ -14,12 +14,8 @@ Two distance semantics (`RasterSettings.sil_mode`):
     semantic reference.
 
 Backends (`RasterSettings.backend`):
-  * "auto": the raster kernel pair of `raster_cuda`, in "edge_lines"
-    semantics. This is the main path. On a GPU tensor the face set-up
-    is a hand-written kernel pair too (`face_setup.raster_faces`: the
-    vertices to the kernels' tables and back); on a CPU tensor the
-    set-up is the torch chain (the face gather, `face_planes`, the
-    fold) and the raster the kernels' plain torch version;
+  * "auto": `RasterFaces`, in "edge_lines" semantics, on every
+    device. This is the main path;
   * "brute": all faces against all window pixels in face chunks, in
     either semantics, differentiated by autograd;
   * "tiles": faces binned to tile x tile pixel blocks, each block
@@ -40,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import face_setup as FS
+from . import raster_cuda as RC
 from .cameras import project_points
-from .face_setup import raster_faces
-from .raster_cuda import face_extents, raster_planes
+from .face_setup import face_planes
 
 
 class RasterSettings(NamedTuple):
@@ -70,49 +67,6 @@ class RasterSettings(NamedTuple):
     def sil_blur_px2(self) -> float:
         s = min(self.image_size) / 2.0
         return float(self.blur_ndc_sil * s * s)
-
-
-def face_planes(fuv, fz, znear, eps: float = 1e-12):
-    """Per-face affine plane coefficients.
-
-    fuv: (..., F, 3, 2) screen-space face vertices; fz: (..., F, 3).
-    Returns (planes (..., F, 12), bbox (..., F, 4) detached,
-    ok_sil (..., F), ok_depth (..., F)). Columns are the three
-    inside-negative unit edge lines (nx, ny, c) and the z plane
-    (za, zb, zc); bbox = (lox, hix, loy, hiy).
-    """
-    ax, ay = fuv[..., 0, 0], fuv[..., 0, 1]
-    bx, by = fuv[..., 1, 0], fuv[..., 1, 1]
-    cx, cy = fuv[..., 2, 0], fuv[..., 2, 1]
-    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
-    sgn = torch.where(area < 0, -1.0, 1.0).to(fuv.dtype)
-
-    def edge(x0, y0, x1, y1):
-        ex, ey = x1 - x0, y1 - y0
-        inv_len = torch.rsqrt(torch.clamp(ex * ex + ey * ey, min=eps))
-        return (sgn * ey * inv_len, -sgn * ex * inv_len,
-                sgn * (ex * y0 - ey * x0) * inv_len)
-
-    n0x, n0y, c0 = edge(ax, ay, bx, by)
-    n1x, n1y, c1 = edge(bx, by, cx, cy)
-    n2x, n2y, c2 = edge(cx, cy, ax, ay)
-
-    ok_area = torch.abs(area) > 1e-9
-    inv_a = (torch.where(ok_area, 1.0, 0.0).to(fuv.dtype)
-             / torch.where(ok_area, area, torch.ones_like(area)))
-    z0, z1, z2 = fz[..., 0], fz[..., 1], fz[..., 2]
-    za = (z0 * (by - cy) + z1 * (cy - ay) + z2 * (ay - by)) * inv_a
-    zb = (z0 * (cx - bx) + z1 * (ax - cx) + z2 * (bx - ax)) * inv_a
-    zc = (z0 * (bx * cy - by * cx) + z1 * (cx * ay - cy * ax)
-          + z2 * (ax * by - ay * bx)) * inv_a
-
-    planes = torch.stack([n0x, n0y, c0, n1x, n1y, c1, n2x, n2y, c2,
-                          za, zb, zc], dim=-1)
-    u, v = fuv[..., 0].detach(), fuv[..., 1].detach()
-    bbox = torch.stack([u.amin(dim=-1), u.amax(dim=-1),
-                        v.amin(dim=-1), v.amax(dim=-1)], dim=-1)
-    ok_sil = torch.all(fz > znear, dim=-1)
-    return planes, bbox, ok_sil, ok_sil & ok_area
 
 
 def spatial_face_order(v_template, faces, band: float = 0.05) -> np.ndarray:
@@ -423,6 +377,65 @@ def full_frame_window(image_size) -> int:
     return -(-max(image_size) // 16) * 16
 
 
+class RasterFaces(torch.autograd.Function):
+    """(zbuf, sil) of B bodies' windows from their projected vertices uvz
+    (B, V, 3) (differentiated), window origins (B, 2) int64 and faces
+    (F, 3); reach_y is the silhouette reach of the tables' y extents.
+    zbuf is +inf where no face covers. The one raster of the main path.
+
+    Each of its four stages is a hand-written kernel on CUDA tensors and
+    that kernel's plain version on CPU tensors (kernel | plain):
+
+      set-up forward:  face_setup.face_setup_fwd_cuda | face_tables
+      raster forward:  raster_cuda.raster_fwd_cuda | raster_fwd_plain
+      raster backward: raster_cuda.raster_bwd_cuda | raster_bwd_plain
+      set-up backward: face_setup.face_setup_bwd_cuda | autograd of
+                       face_setup.face_extents' planes
+
+    `face_setup.face_setup_bwd_plain`, in the kernel's order, is that
+    kernel's reference only: it rounds apart from the chain's autograd,
+    and RMSprop's sign-driven steps amplify the gap.
+    """
+
+    @staticmethod
+    def forward(ctx, uvz, origin, faces, win, inv_blur, znear, reach_y):
+        RC._check_window(win)
+        if uvz.is_cuda:
+            tab, agg = FS.face_setup_fwd_cuda(uvz, origin, faces, znear,
+                                              inv_blur, reach_y)
+            zmin, logkeep, amin = RC.raster_fwd_cuda(tab, agg, win, inv_blur,
+                                                     znear)
+        else:
+            tab, agg = FS.face_tables(uvz, origin, faces, znear, inv_blur,
+                                      reach_y)
+            zmin, logkeep, amin = RC.raster_fwd_plain(tab, win, inv_blur,
+                                                      znear)
+        ctx.save_for_backward(uvz, origin, tab, agg, logkeep, amin)
+        ctx.faces, ctx.win, ctx.inv_blur = faces, win, inv_blur
+        ctx.znear, ctx.reach_y = znear, reach_y
+        return RC._window_outputs(zmin, logkeep)
+
+    @staticmethod
+    def backward(ctx, d_zbuf, d_sil):
+        uvz, origin, tab, agg, logkeep, amin = ctx.saved_tensors
+        d_z, d_lk = RC._cotangents(d_zbuf, d_sil, logkeep, amin)
+        if uvz.is_cuda:
+            dtab = RC.raster_bwd_cuda(tab, agg, d_z, d_lk, amin, ctx.win,
+                                      ctx.inv_blur)
+            duvz = FS.face_setup_bwd_cuda(dtab, uvz, origin, ctx.faces,
+                                          ctx.znear)
+        else:
+            dtab = RC.raster_bwd_plain(tab, d_z, d_lk, amin, ctx.win,
+                                       ctx.inv_blur)
+            with torch.enable_grad():
+                x = uvz.detach().requires_grad_()
+                planes, _ = FS.face_extents(x, origin, ctx.faces, ctx.znear,
+                                            ctx.reach_y)
+                duvz, = torch.autograd.grad(planes, x,
+                                            dtab[:, :planes.shape[1]])
+        return duvz, None, None, None, None, None, None
+
+
 def rasterize_bodies(verts, faces, cam_K, settings: RasterSettings):
     """Depth + silhouette raster of B bodies on their crop windows.
 
@@ -453,14 +466,9 @@ def rasterize_bodies(verts, faces, cam_K, settings: RasterSettings):
                          "semantics; name backend 'brute' or 'tiles' for "
                          f"sil_mode {settings.sil_mode!r}")
     reach = 3.0 * float(np.sqrt(settings.sil_blur_px2)) + 1.0
-    inv_blur = 1.0 / settings.sil_blur_px2
-    if uvz.is_cuda:
-        zbuf, sil = raster_faces(uvz, origin, faces, settings.window,
-                                 inv_blur, settings.znear, reach)
-        return {"zbuf": zbuf, "sil": sil, "origin": origin}
-    zbuf, sil = raster_planes(
-        *face_extents(uvz, origin, faces, settings.znear, reach),
-        settings.window, inv_blur, settings.znear)
+    zbuf, sil = RasterFaces.apply(
+        uvz.contiguous(), origin.contiguous(), faces, settings.window,
+        1.0 / settings.sil_blur_px2, settings.znear, reach)
     return {"zbuf": zbuf, "sil": sil, "origin": origin}
 
 

@@ -58,7 +58,7 @@ from .engine.predictor import Predictor
 from .ops import face_setup as FS
 from .ops import fillin_cuda as FC
 from .ops import phase_marks as PM
-from .ops.raster_cuda import RasterPlanes
+from .ops import raster_cuda as RC
 from .spans import Spans
 from .workload import WINDOW, bench_args, make_ts1_like_seq
 
@@ -195,7 +195,7 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
     # two plain ones (a trace may drop its run's tail)
     refresh = -(-(cycle + profiled + 1) // every) * every
     run(refresh - profiled - 1 - cycle)
-    for counts in (RasterPlanes.launches, FS.launches, PM.launches,
+    for counts in (RC.launches, FS.launches, PM.launches,
                    FC.launches):
         counts.reset()
     first, orders = cycle, []
@@ -220,7 +220,7 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
            f"{100 - 100 * busy_cycle / (1e3 * per_cycle):.1f}%)")
     report(f"device launches {n_dev} ({n_dev / profiled:.0f} per cycle, "
            f"marks included); raster kernel launches "
-           f"{dict(RasterPlanes.launches)}; face set-up kernel launches "
+           f"{dict(RC.launches)}; face set-up kernel launches "
            f"{dict(FS.launches)}; mark kernel "
            f"{dict(PM.launches)}; fill-in kernel {dict(FC.launches)}")
     report("top device rows:")

@@ -20,6 +20,7 @@ from .data.ingestion import SequenceArrays
 from .engine.fhsog import FRAMES_PER_CALL
 from .models.smpl import smpl_forward
 from .models.synthetic import make_synthetic_smpl
+from .ops import face_setup as FS
 from .ops import raster_cuda as RC
 from .ops import rasterizer as R
 from .ops.cameras import intrinsics_from_fov, project_points
@@ -137,7 +138,7 @@ def posed_raster_tables(model, win, n_bodies, seed, device):
     (lists, bounds), from which the work is counted."""
     uvz, origin, st = posed_uvz(model, win, n_bodies, seed, device)
     inv_blur = 1.0 / st.sil_blur_px2
-    tab, agg = RC.face_tables(uvz, origin, model.faces, st.znear, inv_blur,
+    tab, agg = FS.face_tables(uvz, origin, model.faces, st.znear, inv_blur,
                               3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0)
     lists, bounds = RC._strip_chunk_lists(agg, win)
     return tab, agg, lists, bounds, inv_blur, st.znear

@@ -42,7 +42,7 @@ def _tables(dev, win, seed):
         uvz = TR.project_points(v, K, return_depth=True)
         origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
         inv_blur = 1.0 / st.sil_blur_px2
-        tab, agg = TC.face_tables(uvz, origin, model.faces, st.znear,
+        tab, agg = FS.face_tables(uvz, origin, model.faces, st.znear,
                                   inv_blur,
                                   3.0 * float(np.sqrt(st.sil_blur_px2)) + 1.0)
     return tab, agg, inv_blur, rng
@@ -58,7 +58,7 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     relative norm (the pixel sums run in another order); each kernel
     bit-identical from one launch to the next."""
     tab, agg, inv_blur, rng = _tables(cuda_device, win, win)
-    before = dict(TC.RasterPlanes.launches)
+    before = dict(TC.launches)
     zk, lk, ak = TC.raster_fwd_cuda(tab, agg, win, inv_blur, 1.0)
     zp, lp, ap = TC.raster_fwd_plain(tab, win, inv_blur, 1.0)
     assert bool((zk < TC.BIG).any())
@@ -74,8 +74,8 @@ def test_cuda_kernels_match_plain(cuda_device, win):
     assert rel_err(n(gk), n(gp)) < 1e-5
     assert torch.equal(TC.raster_bwd_cuda(tab, agg, dz, dlk, ak, win,
                                           inv_blur), gk)
-    assert TC.RasterPlanes.launches["fwd"] == before["fwd"] + 2
-    assert TC.RasterPlanes.launches["bwd"] == before["bwd"] + 2
+    assert TC.launches["fwd"] == before["fwd"] + 2
+    assert TC.launches["bwd"] == before["bwd"] + 2
 
 
 @pytest.mark.cuda
@@ -103,9 +103,9 @@ def test_python_entry_points_default_to_the_card(cuda_device, tmp_path,
         pred = Predictor(seq, model, str(tmp_path), bench_args(1, None, 64))
         assert pred.device.type == "cuda"
         assert pred.model.faces.device.type == "cuda"
-        before = dict(TC.RasterPlanes.launches)
+        before = dict(TC.launches)
         pred.run(verbose=False)
-        assert all(TC.RasterPlanes.launches[k] > before[k] for k in before)
+        assert all(TC.launches[k] > before[k] for k in before)
         return
     generate_sequence(str(tmp_path / "TS1"), num_frames=4, num_people=2,
                       image_size=(96, 96), model=model, seed=3)
@@ -179,7 +179,7 @@ def test_cuda_face_setup_matches_plain(cuda_device, win, edited):
     args = (uvz, origin, faces, st.znear, 1.0 / st.sil_blur_px2, reach_y)
     before = dict(FS.launches)
     tab, agg = FS.face_setup_fwd_cuda(*args)
-    ptab, pagg = TC.face_tables(*args)
+    ptab, pagg = FS.face_tables(*args)
     assert torch.equal(tab, ptab) and torch.equal(agg, pagg)
     rng = np.random.RandomState(win)
     dtab = t(rng.randn(*tab.shape[::2], 12)).to(cuda_device)
@@ -193,29 +193,17 @@ def test_cuda_face_setup_matches_plain(cuda_device, win, edited):
 
 
 @pytest.mark.cuda
-def test_cuda_raster_planes_refuses_card_tensors(cuda_device):
-    """RasterPlanes is the CPU path's plain raster: on CUDA tensors it
-    raises, and rasterize_bodies takes RasterFaces there."""
-    planes = torch.zeros((1, 128, 12), device=cuda_device)
-    bbox = torch.zeros((1, 128, 4), device=cuda_device)
-    ok = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="CPU tensors"):
-        TC.raster_planes(planes, (bbox, bbox[..., 2], bbox[..., 3], ok,
-                                      ok), 32, 1.0, 0.1)
-
-
-@pytest.mark.cuda
 def test_cuda_face_setup_graph_equals_eager(cuda_device):
-    """rasterize_bodies' CUDA path (RasterFaces: the set-up kernels and
-    the raster pair) forward and backward at B=29, window 160, captured
+    """rasterize_bodies' CUDA path (RasterFaces' kernels: the set-up pair
+    and the raster pair) forward and backward at B=29, window 160, captured
     in a CUDA graph: a replay equals the eager call bit for bit (zbuf,
     sil, the vertex gradient) and counts one launch of each kernel."""
     from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
     faces, uvz, origin, st, reach_y = _set_up_inputs(cuda_device, 160, True)
 
     def run(x):
-        z, s = FS.raster_faces(x, origin, faces, st.window,
-                               1.0 / st.sil_blur_px2, st.znear, reach_y)
+        z, s = TR.RasterFaces.apply(x, origin, faces, st.window,
+                                    1.0 / st.sil_blur_px2, st.znear, reach_y)
         loss = (torch.sum(s * s)
                 + 0.1 * torch.sum(torch.where(torch.isfinite(z), z, 0.0)))
         return (z, s) + torch.autograd.grad(loss, x)
@@ -228,11 +216,11 @@ def test_cuda_face_setup_graph_equals_eager(cuda_device):
     for v in out[-1]:
         v.fill_(-7)
     FS.launches.reset()
-    TC.RasterPlanes.launches.reset()
+    TC.launches.reset()
     graph.replay()
     torch.cuda.synchronize()
     assert dict(FS.launches) == {"fwd": 1, "bwd": 1}
-    assert dict(TC.RasterPlanes.launches) == {"fwd": 1, "bwd": 1}
+    assert dict(TC.launches) == {"fwd": 1, "bwd": 1}
     ref = run(uvz.clone().requires_grad_(True))
     assert all(torch.equal(a, b) for a, b in zip(out[-1], ref))
 
@@ -259,10 +247,10 @@ def test_cuda_fhsog_full_frame_window(cuda_device, monkeypatch, size):
             t((rng.rand(T, H, W) > 0.1).astype(np.float32)),
             v.reshape(T, N, -1, 3), model.faces,
             t(intrinsics_from_fov((W, H), 60.0))]
-    before = TC.RasterPlanes.launches["fwd"]
+    before = TC.launches["fwd"]
     got = fhsog.build_fhsog_from_smpl(*[a.to(cuda_device) for a in args],
                                       1.0, 16.0, num_depth_bins=16)
-    assert TC.RasterPlanes.launches["fwd"] == before + 2
+    assert TC.launches["fwd"] == before + 2
     ref = fhsog.build_fhsog_from_smpl(*args, 1.0, 16.0, num_depth_bins=16)
     assert torch.equal(got[3].cpu(), ref[3]) and bool(ref[3].any())
     for k in (0, 1, 2, 4):
@@ -310,10 +298,10 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     g.prepare(0, 7)
     assert len(g.graphs) == 4
     for c in range(7):
-        TC.RasterPlanes.launches.reset()
+        TC.launches.reset()
         FS.launches.reset()
         g.replay(c)
-        assert dict(TC.RasterPlanes.launches) == {"fwd": per_replay,
+        assert dict(TC.launches) == {"fwd": per_replay,
                                                   "bwd": per_replay}, c
         assert dict(FS.launches) == {"fwd": per_replay,
                                      "bwd": per_replay}, c

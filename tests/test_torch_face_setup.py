@@ -1,9 +1,9 @@
 """The raster's face set-up (ops/face_setup.py) on the CPU: the plain
-versions of its two kernels against the torch chain they replace on the
-card, and its incidence CSR.
+versions of its two kernels against the torch chain, its incidence CSR,
+and the raster Function's CPU stages against the chain's path.
 
 The forward's plain version is the chain itself
-(`raster_cuda.face_tables`: the face gather and `face_planes` in
+(`face_setup.face_tables`: the face gather and `face_planes` in
 `face_extents`, then `_tables`); its tables are held bit for bit to the
 fold written column by column, as the kernel computes it. The
 backward's plain version (the analytic derivative summed per vertex
@@ -59,7 +59,7 @@ def _reach_y(st):
 
 def _chain_tables(uvz, origin, faces, st):
     """The chain the kernels replace on the card, up to the tables."""
-    return RC.face_tables(uvz, origin, faces, st.znear,
+    return FS.face_tables(uvz, origin, faces, st.znear,
                           1.0 / st.sil_blur_px2, _reach_y(st))
 
 
@@ -70,7 +70,7 @@ def _column_fold(uvz, origin, faces, st):
     constant elsewhere and on the padding faces; agg reduces each
     chunk's silhouette-valid bboxes, x extents shifted by the reach,
     y extents by reach_y."""
-    planes, (bbox, _, _, oks, okd) = RC.face_extents(uvz, origin, faces,
+    planes, (bbox, _, _, oks, okd) = FS.face_extents(uvz, origin, faces,
                                                      st.znear, _reach_y(st))
     B, Fn = planes.shape[:2]
     pad = -(-Fn // RC.FACE_CHUNK) * RC.FACE_CHUNK - Fn
@@ -158,28 +158,52 @@ def test_incidence_lists_each_corner_once_ascending(n_vertices):
         FS.incidence(faces.clone(), int(faces.max()), torch.device("cpu"))
 
 
-def test_rasterize_bodies_cpu_keeps_the_chain():
-    """On CPU tensors rasterize_bodies launches nothing of the set-up and
-    returns what RasterPlanes gives on the chain's planes
-    (`face_extents`)."""
+@pytest.mark.parametrize("win", [160, 128])
+def test_rasterize_bodies_cpu_keeps_the_chain(win):
+    """On CPU tensors rasterize_bodies launches nothing of the set-up,
+    and its zbuf, sil and vertex gradient equal bit for bit those of the
+    chain's path built from its parts: face_extents with autograd, the
+    fold and the plain forward without, the plain backward, then
+    autograd through the planes."""
     model = _body(512)
     faces = model.faces
-    st = TR.RasterSettings(image_size=(256, 256), window=160)
-    rng = np.random.RandomState(0)
+    st = TR.RasterSettings(image_size=(256, 256), window=win)
+    rng = np.random.RandomState(win)
     with torch.no_grad():
-        v = smpl_forward(model, torch.zeros((2, 10)),
-                         torch.as_tensor(0.1 * rng.randn(2, 72),
+        v = smpl_forward(model, torch.zeros((3, 10)),
+                         torch.as_tensor(0.1 * rng.randn(3, 72),
                                          dtype=torch.float32),
-                         transl=torch.as_tensor([[0, 0, 3.4]] * 2,
+                         transl=torch.as_tensor([[0, 0, 3.4 * 160 / win]] * 3,
                                                 dtype=torch.float32))["verts"]
     K = torch.as_tensor(intrinsics_from_fov((256, 256), 60.0))
+    w_s, w_z = (torch.as_tensor(rng.randn(3, win, win), dtype=torch.float32)
+                for _ in range(2))
+
+    def loss(z, s):
+        return (torch.sum(w_s * s)
+                + torch.sum(w_z * torch.where(torch.isfinite(z), z, 0.0)))
+
     before = dict(FS.launches)
-    got = TR.rasterize_bodies(v, faces, K, st)
+    x = v.clone().requires_grad_(True)
+    got = TR.rasterize_bodies(x, faces, K, st)
+    loss(got["zbuf"], got["sil"]).backward()
     assert dict(FS.launches) == before
-    uvz = TR.project_points(v, K, return_depth=True)
+
+    y = v.clone().requires_grad_(True)
+    inv_blur = 1.0 / st.sil_blur_px2
+    uvz = TR.project_points(y, K, return_depth=True)
     origin = TR.window_origin(uvz[..., :2], uvz[..., 2], st)
-    z, s = RC.raster_planes(
-        *RC.face_extents(uvz, origin, faces, st.znear, _reach_y(st)),
-        st.window, 1.0 / st.sil_blur_px2, st.znear)
+    planes, ext = FS.face_extents(uvz, origin, faces, st.znear, _reach_y(st))
+    with torch.no_grad():
+        tab, _ = RC._tables(planes, *ext, inv_blur)
+        zmin, logkeep, amin = RC.raster_fwd_plain(tab, win, inv_blur,
+                                                  st.znear)
+        z, s = RC._window_outputs(zmin, logkeep)
+    z, s = z.requires_grad_(True), s.requires_grad_(True)
+    d_z, d_lk = RC._cotangents(*torch.autograd.grad(loss(z, s), (z, s)),
+                               logkeep, amin)
+    dtab = RC.raster_bwd_plain(tab, d_z, d_lk, amin, win, inv_blur)
+    planes.backward(dtab[:, :faces.shape[0]])
     assert torch.equal(got["zbuf"], z) and torch.equal(got["sil"], s)
     assert torch.equal(got["origin"], origin)
+    assert bool((x.grad != 0).any()) and torch.equal(x.grad, y.grad)

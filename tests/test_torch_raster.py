@@ -199,6 +199,17 @@ def _torch_ext(ext):
                    else torch.float32)[None] for e in ext)
 
 
+def _plain_forward(planes, ext, st):
+    """The raster stages' plain forward on `_tri_planes`' tables:
+    (zbuf, sil, tab, logkeep, amin)."""
+    inv_blur = 1.0 / st.sil_blur_px2
+    bbox, lo_y, hi_y, oks, okd = _torch_ext(ext)
+    tab, _ = TC._tables(t(np.asarray(planes))[None], bbox, lo_y, hi_y, oks,
+                        okd, inv_blur)
+    zmin, logkeep, amin = TC.raster_fwd_plain(tab, 32, inv_blur, st.znear)
+    return TC._window_outputs(zmin, logkeep) + (tab, logkeep, amin)
+
+
 def test_plain_kernels_match_pallas_forward():
     """zbuf and sil of the 2-triangle mesh: the kernels' plain version
     against the Pallas forward kernel (interpret mode). Zero coverage
@@ -208,8 +219,7 @@ def test_plain_kernels_match_pallas_forward():
     inv_blur = 1.0 / st.sil_blur_px2
     zr, sr = JP.raster_planes_pallas(planes, ext, 32, inv_blur, st.znear,
                                      True)
-    zg, sg = TC.raster_planes(t(np.asarray(planes))[None], _torch_ext(ext),
-                              32, inv_blur, st.znear)
+    zg, sg = _plain_forward(planes, ext, st)[:2]
     zr, zg = np.asarray(zr), n(zg[0])
     assert (np.isfinite(zr) == np.isfinite(zg)).all()
     cov = np.isfinite(zr)
@@ -234,12 +244,15 @@ def test_plain_kernels_match_pallas_plane_gradients():
         return jnp.sum(w_sil * s) + jnp.sum(w_z * zb)
 
     g_ref = np.asarray(jax.grad(jloss)(planes))
-    p = t(np.asarray(planes))[None].requires_grad_(True)
-    z, s = TC.raster_planes(p, _torch_ext(ext), 32, inv_blur, st.znear)
+    z, s, tab, logkeep, amin = _plain_forward(planes, ext, st)
+    z, s = z.requires_grad_(True), s.requires_grad_(True)
     zb = torch.where(torch.isfinite(z), z, torch.zeros_like(z))
-    (torch.sum(t(w_sil) * s) + torch.sum(t(w_z) * zb)).backward()
+    d_zbuf, d_sil = torch.autograd.grad(
+        torch.sum(t(w_sil) * s) + torch.sum(t(w_z) * zb), (z, s))
+    d_z, d_lk = TC._cotangents(d_zbuf, d_sil, logkeep, amin)
+    dtab = TC.raster_bwd_plain(tab, d_z, d_lk, amin, 32, inv_blur)
     assert np.abs(g_ref).max() > 0
-    assert rel_err(n(p.grad[0]), g_ref) < 1e-5
+    assert rel_err(n(dtab[0, :planes.shape[0]]), g_ref) < 1e-5
 
 
 def test_vertex_gradients_match_brute(body):
@@ -268,25 +281,36 @@ def test_vertex_gradients_match_brute(body):
 
 
 def test_wrapper_routes_by_device(monkeypatch):
-    """A CPU tensor runs the plain version, forward and backward, and
-    launches nothing; the launchers refuse CPU tensors; a window off the
+    """On CPU tensors the one raster Function runs each plain stage once,
+    in order: face_tables (its face_extents) and raster_fwd_plain
+    forward, raster_bwd_plain and face_extents' autograd backward; it
+    launches nothing. The launchers refuse CPU tensors; a window off the
     8-px grid raises."""
-    st, planes, ext = _tri_planes()
-    before = dict(TC.RasterPlanes.launches)
-    plain_bwd, orig = [], TC.raster_bwd_plain
+    from mhmocap_tpu_torch.ops import face_setup as FS
+    calls = []
 
-    def counted_bwd(*a, **k):
-        plain_bwd.append(a[0].device)
-        return orig(*a, **k)
+    def counted(mod, name):
+        orig = getattr(mod, name)
 
-    monkeypatch.setattr(TC, "raster_bwd_plain", counted_bwd)
-    p = t(np.asarray(planes))[None].requires_grad_(True)
-    z, s = TC.raster_planes(p, _torch_ext(ext), 32, 1.0 / st.sil_blur_px2,
-                            st.znear)
-    s.sum().backward()
-    assert plain_bwd == [torch.device("cpu")]
-    assert torch.isfinite(p.grad).all() and bool((p.grad != 0).any())
-    assert TC.RasterPlanes.launches == before
+        def call(*a, **k):
+            calls.append(name)
+            return orig(*a, **k)
+        monkeypatch.setattr(mod, name, call)
+
+    for mod, name in ((FS, "face_tables"), (FS, "face_extents"),
+                      (TC, "raster_fwd_plain"), (TC, "raster_bwd_plain")):
+        counted(mod, name)
+    before = (dict(TC.launches), dict(FS.launches))
+    verts, faces = _tri_mesh()
+    faces = torch.as_tensor(faces, dtype=torch.int64)
+    ts = TR.RasterSettings(image_size=(32, 32), window=32)
+    v = t(verts)[None].requires_grad_(True)
+    o = TR.rasterize_bodies(v, faces, t(K32), ts)
+    assert calls == ["face_tables", "face_extents", "raster_fwd_plain"]
+    o["sil"].sum().backward()
+    assert calls[3:] == ["raster_bwd_plain", "face_extents"]
+    assert torch.isfinite(v.grad).all() and bool((v.grad != 0).any())
+    assert (dict(TC.launches), dict(FS.launches)) == before
     tab = torch.zeros((1, 16, 128))
     agg = torch.zeros((1, 1, 4))
     with pytest.raises(ValueError):
@@ -294,9 +318,16 @@ def test_wrapper_routes_by_device(monkeypatch):
     img = torch.zeros((1, 32, 32))
     with pytest.raises(ValueError):
         TC.raster_bwd_cuda(tab, agg, img, img, img.to(torch.int32), 32, 1.0)
+    uvz, origin = torch.zeros((1, 6, 3)), torch.zeros((1, 2),
+                                                      dtype=torch.int64)
     with pytest.raises(ValueError):
-        TC.raster_planes(t(np.asarray(planes))[None], _torch_ext(ext), 36,
-                         1.0, 1.0)
+        FS.face_setup_fwd_cuda(uvz, origin, faces, 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        FS.face_setup_bwd_cuda(torch.zeros((1, 128, 12)), uvz, origin,
+                               faces, 1.0)
+    with pytest.raises(ValueError, match="multiple of"):
+        TR.rasterize_bodies(v, faces, t(K32),
+                            ts._replace(image_size=(64, 64), window=36))
 
 
 def _full_body_tables(win, n_bodies=3, invalid_chunk=1):
