@@ -6,9 +6,10 @@ Phases (any failure raises, so the process exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit;
   2. build: compiles the raster kernels (ops/csrc/raster_*.cu), the
-     face set-up kernels (ops/csrc/face_setup.cu) and the fill-in kernel
-     (ops/csrc/fillin.cu) with nvcc for sm_90a and the host codecs
-     (native/codecs.cpp) with g++, the four builds started at once, all
+     face set-up kernels (ops/csrc/face_setup.cu), the fill-in kernel
+     (ops/csrc/fillin.cu) and the window-loss kernels
+     (ops/csrc/window_loss.cu) with nvcc for sm_90a and the host codecs
+     (native/codecs.cpp) with g++, the five builds started at once, all
      into build/mhmocap_tpu_torch/, and prints the
      compilers, the build times and ptxas' register, spill and
      shared-memory report;
@@ -41,6 +42,18 @@ Phases (any failure raises, so the process exits non-zero):
      output written once), the plain version (eager) and the torch
      chain they replace (face_tables and its autograd backward, in a
      graph);
+  3c. window loss: the window-loss kernel pair (ops/csrc/window_loss.cu)
+     at the benchmark cells' chunk shapes (workload.WINDOW_LOSS_SHAPES:
+     29 frames, 2 people, 256x256, windows 160/128; 39 frames, 3 people,
+     240x135, windows 112/80/64) on workload.window_loss_inputs' cases
+     against its plain version (ops/window_loss.py): per-pixel d_zbuf and
+     d_sil bit for bit window_loss_bwd_plain's from the kernel's saved
+     rows, both scalars and d_min_z, d_max_z to 1e-5 relative, two
+     backward calls bit-identical, two launches counted each way; then
+     each kernel pair timed (20 calls in a CUDA graph, CUDA events)
+     beside its bound (bytes over 3.35 TB/s), the plain version (eager)
+     and the torch chain it replaces (forward and autograd backward in a
+     graph);
   3b. fill-in: the fill-in kernel (ops/csrc/fillin.cu) against its
      plain version (ops.image.fillin_plain) at its three call shapes,
      built from bench-ts1: the scene rebuild's map and mask (k 7,
@@ -58,8 +71,10 @@ Phases (any failure raises, so the process exits non-zero):
      graphs too), so that the scene rebuild (cycle 30) and the One-Euro
      refresh (cycle 50) both run; the fit captures its 4 variants
      before its loop (CycleGraph.prepare), and every cycle from 30 is
-     timed; checks the kernel launch counters (through the replays),
-     the 4 variants, the losses, the refreshes and the pickles, and
+     timed; checks the kernel launch counters (through the replays; the
+     window-loss pair's: two launches each way a chunk, i.e. twice the
+     raster's over the window groups), the 4 variants, the losses, the
+     refreshes and the pickles, and
      prints the per-cycle, init-solve and capture seconds; fails on a
      raster call shape phase 3 did not check;
   5. reference: a tiny Predictor.run on the card against the same run on
@@ -140,8 +155,9 @@ Phases (any failure raises, so the process exits non-zero):
      before cycle 0, each warmed up on a snapshot of the state that is
      then restored (as every fit on the card does): every cycle's loss
      and parts, the final params and RMSprop state bit-identical, 21
-     forward and 21 backward launches a cycle on both paths, counted by
-     the kernels (every graph cycle a replay); prints prepare's seconds
+     forward and 21 backward launches a cycle on both paths and 14 + 14
+     of the window-loss pair (two each way a chunk), counted by the
+     kernels (every graph cycle a replay); prints prepare's seconds
      (each variant's warm-up and capture, and the snapshots), both
      runs' peak memory, the
      seconds a cycle of both paths over [30, 52) and at cycle 50 (a
@@ -173,7 +189,8 @@ launches a call; phase 10 holds each rank's counts a cycle to the one
 process's, phase 11 the graphs' to the eager loop's (the same calls
 stopping at the same round), only in the scene-rebuild cycles.
 The last three lines are a JSON object with one entry per kernel (the
-phase mark's launches are those of phase 11b),
+phase mark's launches are those of phase 11b, the window-loss pair's
+those of phases 4 and 11),
 nvidia-smi's name and power limit of the card, and
 {"ok": true, "device": {...}}.
 """
@@ -271,18 +288,21 @@ def phase_build():
     from mhmocap_tpu_torch.ops import face_setup as FS
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops import raster_cuda as RC
+    from mhmocap_tpu_torch.ops import window_loss as WL
 
     def timed(build):
         t0 = time.time()
         lib, log = build()
         return lib, log, time.time() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {name: pool.submit(timed, build) for name, build in (
             ("raster", RC.build_kernels), ("face set-up", FS.build_kernels),
-            ("fill-in", FC.build_kernels), ("codecs", native.build_library))}
+            ("fill-in", FC.build_kernels),
+            ("window loss", WL.build_kernels),
+            ("codecs", native.build_library))}
         built = {name: job.result() for name, job in jobs.items()}
-    for name in ("raster", "face set-up", "fill-in"):
+    for name in ("raster", "face set-up", "fill-in", "window loss"):
         lib, log, dt = built[name]
         print(f"[2 build] {name} kernels {lib} in {dt:.2f}s"
               + ("" if log else " (already built)"), flush=True)
@@ -293,6 +313,7 @@ def phase_build():
     RC._library()
     FS._library()
     FC._library()
+    WL._library()
     cxx = native.compiler()
     version = subprocess.run([cxx, "--version"], capture_output=True,
                              text=True, check=True).stdout.splitlines()[0]
@@ -322,14 +343,16 @@ def _check_raster_calls(cfg, where, calls=None):
 
 
 def _reset_counts():
-    """Zero the raster, face set-up and fill-in kernels' launch
-    counters."""
+    """Zero the raster, face set-up, fill-in and window-loss kernels'
+    launch counters."""
     from mhmocap_tpu_torch.ops import face_setup as FS
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
     from mhmocap_tpu_torch.ops import raster_cuda as RC
+    from mhmocap_tpu_torch.ops import window_loss as WL
     RC.launches.reset()
     FS.launches.reset()
     FC.launches.reset()
+    WL.launches.reset()
 
 
 COUNTED = ("fwd", "bwd", "setup_fwd", "setup_bwd")
@@ -348,6 +371,29 @@ def _raster_counts(where):
         raise AssertionError(f"{where}: face set-up launches {faces} are "
                              f"not the raster launches {raster}")
     return dict(raster, **{f"setup_{k}": v for k, v in faces.items()})
+
+
+# the window-loss launches phases 4 and 11 counted, for the kernels JSON
+WINDOW_LOSS_COUNTED = {"fwd": 0, "bwd": 0}
+
+
+def _window_loss_counts(where, raster, groups):
+    """The window-loss kernels' launches since the last reset, counted by
+    the kernels. Each chunk of a fit makes one raster call a window group
+    and one window-loss call (two launches forward, two backward), so
+    each count must be twice the raster's over the groups."""
+    from mhmocap_tpu_torch.ops import window_loss as WL
+    got = dict(WL.launches)
+    want = {k: 2 * (raster[k] // groups) for k in got}
+    print(f"[{where}] window-loss kernels: {got} launches (want {want}: "
+          f"two a chunk each way, raster {raster} over {groups} groups)",
+          flush=True)
+    if got != want or any(raster[k] % groups for k in got):
+        raise AssertionError(f"{where}: window-loss launches {got}, want "
+                             f"{want}")
+    for k in got:
+        WINDOW_LOSS_COUNTED[k] += got[k]
+    return got
 
 
 def _fillin_counts(where):
@@ -654,6 +700,118 @@ def _face_setup_timing(faces, uvz, origin, st, tab, agg, checked):
     return dict(t, bound=bound, bytes=nbytes)
 
 
+# Phase 3c: the window-loss kernel pair (ops/csrc/window_loss.cu) at the
+# benchmark cells' chunk shapes (workload.WINDOW_LOSS_SHAPES) on
+# window_loss_inputs' cases: against its plain version (the saved n_pix
+# and n_keep exact, the diffs and both scalars to 1e-5 relative; from
+# the kernel's saved rows, d_zbuf and d_sil bit for bit
+# window_loss_bwd_plain's, d_min_z and d_max_z to 1e-5 relative norm),
+# then each kernel pair on the device's clock (20 calls in a CUDA graph)
+# beside its bound: bytes over 3.35 TB/s, each input byte read once (the
+# depths at the union of a frame's windows, the forward's masks over
+# whole frames, the backward's at that union) and each output written
+# once (the scratch between a pair's two kernels left out); the plain
+# version (eager) and the torch chain it replaces, forward and autograd
+# backward in a CUDA graph.
+WINDOW_LOSS_COT = (0.75, -1.5)
+
+
+def _window_loss_bytes(groups, rasters, inputs):
+    """(forward, backward) bytes of a window-loss call, as above."""
+    seg = inputs[3]
+    C, N, H, W = seg.shape
+    union = torch.zeros((C, H, W), dtype=torch.bool)
+    win_px = 0
+    for (win, group), (_, _, origin) in zip(groups, rasters):
+        o = origin.reshape(C, len(group), 2).cpu().numpy()
+        for c in range(C):
+            for x0, y0 in o[c]:
+                union[c, y0:y0 + win, x0:x0 + win] = True
+        win_px += origin.shape[0] * win * win
+    u = int(union.sum())
+    small = 4 * (3 * C * N + 2 * C) + sum(8 * r[2].numel() for r in rasters)
+    S = sum(C * len(g) for _, g in groups)
+    fwd = 4 * (2 * win_px + win_px + u + C * N * H * W) + small \
+        + 4 * (5 * S + 2)
+    bwd = 4 * (2 * win_px + win_px + u + N * u + 5 * S + 2) + small \
+        + 4 * (2 * win_px + 2 * C)
+    return fwd, bwd
+
+
+def phase_window_loss():
+    from mhmocap_tpu_torch.ops import window_loss as WL
+    from mhmocap_tpu_torch.workload import (WINDOW_LOSS_SHAPES, cuda_ms,
+                                            window_loss_inputs)
+    dev = torch.device("cuda")
+    out = {}
+    for cell, shape in WINDOW_LOSS_SHAPES.items():
+        groups, rasters, inputs, eps = window_loss_inputs(shape, seed=17,
+                                                          device=dev)
+        leaves = ([inputs[1], inputs[2]] + [r[0] for r in rasters]
+                  + [r[1] for r in rasters])
+        rasters = [tuple(x.detach() for x in r) for r in rasters]
+        inputs = [x.detach() for x in inputs]
+        args = (groups, rasters, *inputs, eps)
+        cot = [torch.tensor(g, device=dev) for g in WINDOW_LOSS_COT]
+        WL.launches.reset()
+        ld, ls, saved = WL.window_loss_fwd_cuda(*args)
+        kz, ks, kmin, kmax = WL.window_loss_bwd_cuda(*args, saved, *cot)
+        counted = dict(WL.launches)
+        pd, ps = WL.window_losses_plain(*args)
+        pz, pss, pmin, pmax = WL.window_loss_bwd_plain(*args, saved, *cot)
+        again = WL.window_loss_bwd_cuda(*args, saved, *cot)
+        torch.cuda.synchronize()
+        bits = sum(_bit_gap(a, b)[0] for a, b in zip(kz + ks, pz + pss))
+        rel = {"loss_depth": float(abs(ld - pd) / abs(pd)),
+               "loss_sil": float(abs(ls - ps) / abs(ps)),
+               "d_min_z": float(torch.linalg.norm(kmin - pmin)
+                                / torch.linalg.norm(pmin)),
+               "d_max_z": float(torch.linalg.norm(kmax - pmax)
+                                / torch.linalg.norm(pmax))}
+        same = all(torch.equal(a, b) for a, b in zip(
+            again[0] + again[1] + [again[2], again[3]],
+            kz + ks + [kmin, kmax]))
+        print(f"[3c window loss] {cell} (C, N, (W, H), groups) {shape}: "
+              f"kernels vs plain, per-pixel d_zbuf and d_sil entries whose "
+              f"bits differ {bits}; relative gaps "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+              + f" (bound 1e-5); two backward calls bit-identical {same}; "
+              f"launches counted {counted}", flush=True)
+        if (bits or not same or not max(rel.values()) <= 1e-5
+                or counted != {"fwd": 2, "bwd": 2}):
+            raise AssertionError(f"window-loss kernels vs plain, {cell}: "
+                                 f"bits {bits}, {rel}, launches {counted}")
+
+        def chain():
+            with torch.enable_grad():
+                x = [v.clone().requires_grad_() for v in leaves]
+                loss = WL.window_losses_plain(
+                    groups, [(x[2 + i], x[2 + len(groups) + i], r[2])
+                             for i, r in enumerate(rasters)],
+                    inputs[0], x[0], x[1], *inputs[3:], eps)
+                torch.autograd.grad(loss, x, cot)
+
+        nbytes = dict(zip(("fwd", "bwd"),
+                          _window_loss_bytes(groups, rasters, inputs)))
+        t = {"fwd": _graph_ms(lambda: WL.window_loss_fwd_cuda(*args), dev),
+             "bwd": _graph_ms(lambda: WL.window_loss_bwd_cuda(
+                 *args, saved, *cot), dev),
+             "plain_fwd": cuda_ms(lambda: WL.window_losses_plain(*args), 2),
+             "plain_bwd": cuda_ms(lambda: WL.window_loss_bwd_plain(
+                 *args, saved, *cot), 2),
+             "chain": _graph_ms(chain, dev, 5)}
+        bound = {k: _bound(0, nbytes[k]) for k in nbytes}
+        print(f"[3c window loss] time {cell}: "
+              + ", ".join(f"{k} {t[k]:.4f} ms (plain {t['plain_' + k]:.3f};"
+                          f" {nbytes[k] / 1e6:.1f} MB, bound "
+                          f"{bound[k][0]:.4f} ms, share "
+                          f"{bound[k][0] / t[k]:.3f})" for k in ("fwd", "bwd"))
+              + f"; the torch chain it replaces, forward + backward in a "
+              f"CUDA graph: {t['chain']:.4f} ms", flush=True)
+        out[cell] = dict(t, bound=bound, bytes=nbytes, bits=bits, rel=rel)
+    return out
+
+
 # Phase 3b: the fill-in kernel (ops/csrc/fillin.cu) against its plain
 # version at its three call shapes, bit for bit. Every call on the paths
 # runs FILLIN_ITERS (fillin_masked's default max_iters) round launches.
@@ -919,6 +1077,10 @@ def phase_main_path(out_dir):
     run_s = time.time() - t0
     launches = _raster_counts("4 main")
     fill = _fillin_counts("4 main")
+    wl = _window_loss_counts("4 main", launches, len(cfg.window_groups))
+    print(f"[4 main] window-loss launches a cycle: "
+          f"{2 * cfg.num_chunks} forward and {2 * cfg.num_chunks} backward "
+          f"({cfg.num_chunks} chunks); the run's {wl}", flush=True)
     losses = pred.stage1_losses
     per_cycle = np.asarray(pred.bench_window_seconds)
     print(f"[4 main] launches {launches}; losses cycle 0 {losses[0]:.6f} "
@@ -1927,10 +2089,12 @@ GRAPH_BENCH = {"Ks": (5, 15), "meas": 15, "reps": 1}
 
 
 def _run_cycles(step, n):
-    """(seconds, raster launches, fill-in counts) of cycles 0..n-1, each
-    run by step(c) between synchronizations with the counts from 0."""
+    """(seconds, raster launches, fill-in counts, window-loss launches)
+    of cycles 0..n-1, each run by step(c) between synchronizations with
+    the counts from 0."""
     from mhmocap_tpu_torch.ops import fillin_cuda as FC
-    secs, launches, fill = [], [], []
+    from mhmocap_tpu_torch.ops import window_loss as WL
+    secs, launches, fill, wl = [], [], [], []
     for c in range(n):
         torch.cuda.synchronize()
         _reset_counts()
@@ -1940,7 +2104,8 @@ def _run_cycles(step, n):
         secs.append(time.perf_counter() - t0)
         launches.append(_raster_counts("11 graphs"))
         fill.append(dict(FC.launches))
-    return np.asarray(secs), launches, fill
+        wl.append(dict(WL.launches))
+    return np.asarray(secs), launches, fill, wl
 
 
 def _span(secs):
@@ -2013,9 +2178,9 @@ def phase_graphs():
             parts.append(part)
 
         torch.cuda.reset_peak_memory_stats()
-        secs, launches, fill = _run_cycles(step, GRAPH_CYCLES)
+        secs, launches, fill, wl = _run_cycles(step, GRAPH_CYCLES)
         p, st, _ = state["s"]
-        return dict(secs=secs, launches=launches, fill=fill,
+        return dict(secs=secs, launches=launches, fill=fill, wl=wl,
                     losses=torch.stack(losses),
                     parts=torch.stack(parts), state=(p, st.nu, st.trace),
                     count=int(st.count),
@@ -2031,7 +2196,7 @@ def phase_graphs():
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     variants = []
-    g_secs, g_launches, g_fill = _run_cycles(
+    g_secs, g_launches, g_fill, g_wl = _run_cycles(
         lambda c: variants.append(graph.replay(c)), GRAPH_CYCLES)
     g_peak = torch.cuda.max_memory_allocated()
     st = graph.state
@@ -2067,6 +2232,18 @@ def phase_graphs():
           f"{want}); cycles off {bad}", flush=True)
     if bad:
         fails.append(f"raster launches {bad}")
+    # the window-loss pair: two launches each way a chunk, in the graphs
+    # as in the eager loop
+    want_wl = dict.fromkeys(("fwd", "bwd"), 2 * cfg.num_chunks)
+    bad = [(c, n_e, n_g) for c, (n_e, n_g) in enumerate(
+        zip(eager["wl"], g_wl)) if n_e != want_wl or n_g != want_wl]
+    print(f"[11 graphs] window-loss launches a cycle, counted by the "
+          f"kernels: eager {eager['wl'][-1]}, graph {g_wl[-1]} (want "
+          f"{want_wl}); cycles off {bad}", flush=True)
+    if bad:
+        fails.append(f"window-loss launches {bad}")
+    for k in want_wl:
+        WINDOW_LOSS_COUNTED[k] += sum(n[k] for n in eager["wl"] + g_wl)
     # the fill-in of every scene rebuild (cycles 30-52) stops at the same
     # round in the graphs as in the eager loop, and runs nowhere else
     scene = [c for c, n in enumerate(g_fill) if n["calls"]]
@@ -2330,6 +2507,7 @@ def main():
     phase_device()
     phase_build()
     errs, timing, setup = phase_kernels()
+    window_loss = phase_window_loss()
     fillin = phase_fillin()
     with tempfile.TemporaryDirectory() as tmp:
         runs = [phase_main_path(os.path.join(tmp, "main"))]
@@ -2396,6 +2574,23 @@ def main():
         max_abs_err=fillin["max_abs_err"], library_ms=None,
         calls=fill["calls"], live_rounds=fill["live"],
         shapes={k: v for k, v in fillin.items() if k != "max_abs_err"}))
+    # the window-loss pair at ts11-fit's chunk (the claimed cell); its
+    # launches are those phases 4 and 11 counted
+    w11 = window_loss["ts11-fit"]
+    kernels += [
+        {"name": f"window_loss_{k}", "route": "cuda",
+         "source": "mhmocap_tpu_torch/ops/csrc/window_loss.cu",
+         "replaces": None, "launches": WINDOW_LOSS_COUNTED[k],
+         "bits_differ": (sum(v["bits"] for v in window_loss.values())
+                         if k == "bwd" else None),
+         "max_rel_err": max(max(v["rel"].values())
+                            for v in window_loss.values()),
+         "ms": w11[k], "plain_ms": w11[f"plain_{k}"],
+         "bound_ms": w11["bound"][k][0], "bound_by": "bytes",
+         "library_ms": None, "chain_graph_ms": w11["chain"],
+         "shapes": {c: {"ms": v[k], "bound_ms": v["bound"][k][0]}
+                    for c, v in window_loss.items()}}
+        for k in ("fwd", "bwd")]
     # the phase mark at bench-ts1's graphs (phase 11b): its structure
     # held to the plain version's, row for row; bound by its launch
     kernels.append(dict(

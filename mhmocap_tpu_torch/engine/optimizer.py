@@ -44,6 +44,7 @@ from ..ops.cameras import project_points, softplus
 from ..ops.morphology import erode
 from ..ops.one_euro import one_euro_filter, one_euro_step
 from ..ops.rasterizer import RasterSettings, rasterize_bodies
+from ..ops.window_loss import window_losses
 from ..spans import span
 from .scene import (ScenePointCloud, aggregate_scene_depth,
                     build_scene_pointcloud, contact_targets)
@@ -557,31 +558,6 @@ def _smpl_bodies(model, poses, betas, scale, poses_T):
     return scale * verts + poses_T, scale * joints + poses_T
 
 
-def _window_index(origins, win):
-    ar = torch.arange(win, device=origins.device)
-    rows = origins[..., 1, None] + ar             # (C, N, win)
-    cols = origins[..., 0, None] + ar
-    return rows[..., :, None], cols[..., None, :]
-
-
-def _gather_windows(imgs, origins, win):
-    """imgs (C, N, H, W), origins (C, N, 2) -> (C, N, win, win)."""
-    C, N = origins.shape[:2]
-    rows, cols = _window_index(origins, win)
-    c = torch.arange(C, device=imgs.device)[:, None, None, None]
-    n = torch.arange(N, device=imgs.device)[None, :, None, None]
-    return imgs[c, n, rows, cols]
-
-
-def _gather_windows_shared(img_c, origins, win):
-    """One image per frame shared by all people: img_c (C, H, W),
-    origins (C, N, 2) -> (C, N, win, win)."""
-    C = origins.shape[0]
-    rows, cols = _window_index(origins, win)
-    c = torch.arange(C, device=img_c.device)[:, None, None, None]
-    return img_c[c, rows, cols]
-
-
 # ---------------------------------------------------------------------------
 # The per-chunk loss
 # ---------------------------------------------------------------------------
@@ -704,60 +680,22 @@ def _chunk_loss_core(chunk: ChunkInputs, model: SMPLModel, betas, scale,
     loss_pose = torch.sum(torch.square(w2d * (proj - pose2d_c[..., :2])
                                        / norm))
 
-    target_disp = (depths_c * (1.0 / min_z_c - 1.0 / max_z_c)
-                   + 1.0 / max_z_c)
-
-    # occlusion keep masks: person q in front of p (z, then index)
-    z = poses_T_h[1:, :, 0, 2].detach()
-    idx = torch.arange(N, device=dev)
-    in_front = ((z[:, None, :] < z[:, :, None])
-                | ((z[:, None, :] == z[:, :, None])
-                   & (idx[None, None, :] < idx[None, :, None])))
-    closer = torch.einsum("cpq,cqx->cpx", in_front.to(f32),
-                          seg_c.reshape(C, N, -1)).reshape(C, N, H, W)
-    keep = 1.0 - (closer > 0).to(f32)
-    n_keep = torch.sum(keep, dim=(2, 3)) + 1.0
-    seg_keep_total = torch.sum(keep * seg_c, dim=(2, 3))
-    dw = pose2d_valid * fv
-    sil_gate = mask_valid * pose2d_valid * fv
-
-    loss_depth = torch.zeros((), device=dev)
-    loss_sil = torch.zeros((), device=dev)
+    # the window depth and silhouette terms: every group's raster, then
+    # one WindowLosses call (the kernel pair on the card); z orders the
+    # occlusion (root depth, then index)
+    rasters = []
     for win, group in cfg.window_groups:
         g = _on_device(group, torch.int64, dev)
-        ng = len(group)
         raster = rasterize_bodies(
-            verts_abs[:, g].reshape(C * ng, -1, 3), model.faces, cam_K,
-            cfg.raster_settings_for_window(win))
-        zbuf = raster["zbuf"].reshape(C, ng, win, win)
-        sil = raster["sil"].reshape(C, ng, win, win)
-        origins = raster["origin"].reshape(C, ng, 2)
-
-        target_win = _gather_windows_shared(target_disp, origins, win)
-        seg_er_win = _gather_windows(chunk.seg_er_c[:, g], origins, win)
-        zbuf_valid = torch.isfinite(zbuf)
-        zbuf_safe = torch.where(zbuf_valid, zbuf, torch.ones_like(zbuf))
-        zbuf_disp = 1.0 / torch.clamp(zbuf_safe + 0.2, min=cfg.eps)
-        dmask = (zbuf_valid.to(f32) * seg_er_win
-                 * dw[:, g][..., None, None])
-        n_pix = torch.sum(dmask, dim=(2, 3)) + 1.0
-        mean_pred = torch.sum(
-            dmask * torch.log(torch.clamp(zbuf_disp, min=cfg.eps)),
-            dim=(2, 3)) / n_pix
-        mean_true = torch.sum(
-            dmask * torch.log(torch.clamp(target_win, min=cfg.eps)),
-            dim=(2, 3)) / n_pix
-        loss_depth = loss_depth + torch.sum(
-            torch.square(mean_pred - mean_true))
-
-        keep_win = _gather_windows(keep[:, g], origins, win)
-        seg_win = _gather_windows(seg_c[:, g], origins, win)
-        in_win = torch.sum(torch.square(keep_win * (sil - seg_win)),
-                           dim=(2, 3))
-        seg_keep_win = torch.sum(keep_win * seg_win, dim=(2, 3))
-        outside = seg_keep_total[:, g] - seg_keep_win
-        loss_sil = loss_sil + torch.sum(
-            sil_gate[:, g] * (in_win + outside) / n_keep[:, g])
+            verts_abs[:, g].reshape(C * len(group), -1, 3), model.faces,
+            cam_K, cfg.raster_settings_for_window(win))
+        rasters.append((raster["zbuf"], raster["sil"], raster["origin"]))
+    dw = pose2d_valid * fv
+    sil_gate = mask_valid * pose2d_valid * fv
+    loss_depth, loss_sil = window_losses(
+        cfg.window_groups, rasters, depths_c, min_z_c, max_z_c, seg_c,
+        chunk.seg_er_c, poses_T_h[1:, :, 0, 2].detach(), dw, sil_gate,
+        cfg.eps)
 
     # contact + foot sliding, only once the scene exists
     poses_T_c = poses_T_h[1:]

@@ -31,10 +31,11 @@ them. It reports:
     group's launches, busy and idle time (the trace cut at the mark
     kernels, `phase_marks.split`; a trace that lost marks is reported
     as unreadable by phase), the raster kernel launches beside the face
-    set-up kernels', the mark kernel's launches, the fill-in kernel's
-    counts (calls, round launches, live rounds), the top device rows,
-    the rows of the face set-up and fill-in kernels, of every sort and
-    of every indexing backward, and the top host ops by self time.
+    set-up kernels' and the window-loss kernels', the mark kernel's
+    launches, the fill-in kernel's counts (calls, round launches, live
+    rounds), the top device rows, the rows of the face set-up,
+    window-loss and fill-in kernels, of every sort and of every indexing
+    backward, and the top host ops by self time.
 
 The report goes to stdout and, with --out, to that file as well.
 """
@@ -59,6 +60,7 @@ from .ops import face_setup as FS
 from .ops import fillin_cuda as FC
 from .ops import phase_marks as PM
 from .ops import raster_cuda as RC
+from .ops import window_loss as WL
 from .spans import Spans
 from .workload import WINDOW, bench_args, make_ts1_like_seq
 
@@ -195,7 +197,7 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
     # two plain ones (a trace may drop its run's tail)
     refresh = -(-(cycle + profiled + 1) // every) * every
     run(refresh - profiled - 1 - cycle)
-    for counts in (RC.launches, FS.launches, PM.launches,
+    for counts in (RC.launches, FS.launches, WL.launches, PM.launches,
                    FC.launches):
         counts.reset()
     first, orders = cycle, []
@@ -221,17 +223,19 @@ def profile_cycles(warm: int, timed: int, profiled: int, report):
     report(f"device launches {n_dev} ({n_dev / profiled:.0f} per cycle, "
            f"marks included); raster kernel launches "
            f"{dict(RC.launches)}; face set-up kernel launches "
-           f"{dict(FS.launches)}; mark kernel "
+           f"{dict(FS.launches)}; window-loss kernel launches "
+           f"{dict(WL.launches)}; mark kernel "
            f"{dict(PM.launches)}; fill-in kernel {dict(FC.launches)}")
     report("top device rows:")
     for key, ms, cnt in dev[:15]:
         report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
                f"{key[:90]}")
-    report("device rows of the face set-up and fill-in kernels, of sorts "
-           "and of indexing backwards:")
+    report("device rows of the face set-up, window-loss and fill-in "
+           "kernels, of sorts and of indexing backwards:")
     for key, ms, cnt in dev:
         if any(w in key.lower() for w in ("mhmocap_faces", "mhmocap_fill",
-                                          "sort", "indexing_backward")):
+                                          "mhmocap_window_loss", "sort",
+                                          "indexing_backward")):
             report(f"  {ms:10.3f} ms  {100 * ms / busy:5.1f}%  x{cnt:6d}  "
                    f"{key[:90]}")
     host = sorted(((k.key, k.self_cpu_time_total / 1e3, k.count) for k in ka

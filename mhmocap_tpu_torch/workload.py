@@ -144,6 +144,76 @@ def posed_raster_tables(model, win, n_bodies, seed, device):
     return tab, agg, lists, bounds, inv_blur, st.znear
 
 
+# The window-loss kernels' call shapes, the benchmark cells' chunks:
+# (C frames, N people, (W, H), window groups) of ts1-fit and ts11-fit
+WINDOW_LOSS_SHAPES = {
+    "ts1-fit": (29, 2, (256, 256), ((160, (0,)), (128, (1,)))),
+    "ts11-fit": (39, 3, (240, 135), ((112, (0,)), (80, (1,)), (64, (2,)))),
+}
+WINDOW_LOSS_EPS = 1e-3     # EngineConfig.eps
+
+
+def window_loss_inputs(shape, seed, device="cpu", edges=True,
+                       no_dmask=False):
+    """A chunk's window-loss inputs at `shape` ((C, N, (W, H), window
+    groups), as WINDOW_LOSS_SHAPES) from `seed`: (groups, rasters,
+    inputs, eps), rasters one (zbuf, sil, origin) per group, zbuf and sil
+    leaves that require grad; inputs (depths_c, min_z_c, max_z_c (leaves
+    that require grad), seg_c, seg_er_c, z, dw, sil_gate). Box masks,
+    eroded at random; 30% empty pixels (+inf zbuf). With `edges`: zbuf
+    + 0.2 <= eps, zbuf disparities under eps, targets <= eps (negative
+    depths), windows at the frame's right and bottom edge and its
+    corners, equal root depths (the index tie-break); people without a
+    depth mask (dw 0) or a silhouette gate (0) at random, with
+    `no_dmask` none has a depth mask."""
+    C, N, (W, H), groups = shape
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((C, N, H, W), np.float32)
+    for c in range(C):
+        for n in range(N):
+            x0, y0 = rng.randint(0, W // 2), rng.randint(0, H // 2)
+            seg[c, n, y0:y0 + rng.randint(H // 4, H // 2),
+                x0:x0 + rng.randint(W // 4, W // 2)] = 1
+    seg_er = seg * (rng.rand(C, N, H, W) > 0.15)
+    depths = rng.uniform(0.2, 1.0, (C, H, W)).astype(np.float32)
+    if edges:   # targets <= eps where the depth is negative
+        depths[rng.rand(C, H, W) < 0.05] = -0.5
+    min_z = rng.uniform(1.0, 2.0, (C, 1, 1)).astype(np.float32)
+    max_z = (min_z + 1.0 + rng.uniform(0, 3, (C, 1, 1))).astype(np.float32)
+    z = rng.uniform(2, 8, (C, N)).astype(np.float32)
+    if edges:   # equal roots: the index decides
+        z[::2, -1] = z[::2, 0]
+    dw = (rng.rand(C, N) > 0.2).astype(np.float32)
+    sil_gate = (rng.rand(C, N) > 0.2).astype(np.float32)
+    if no_dmask:
+        dw[:] = 0
+    rasters = []
+    for win, group in groups:
+        B = C * len(group)
+        zb = rng.uniform(2, 8, (B, win, win)).astype(np.float32)
+        zb[rng.rand(B, win, win) < 0.3] = np.inf
+        if edges:
+            zb[rng.rand(B, win, win) < 0.02] = -0.5     # zbuf + 0.2 <= eps
+            zb[rng.rand(B, win, win) < 0.02] = 2000.0   # disparity < eps
+        sil = rng.rand(B, win, win).astype(np.float32)
+        origin = np.stack([rng.randint(0, W - win + 1, B),
+                           rng.randint(0, H - win + 1, B)], -1)
+        if edges:
+            origin[0] = (W - win, H - win)
+            origin[-1] = (0, H - win)
+            origin[len(origin) // 2] = (W - win, 0)
+        rasters.append((
+            torch.tensor(zb, device=device).requires_grad_(),
+            torch.tensor(sil, device=device).requires_grad_(),
+            torch.tensor(origin, dtype=torch.int64, device=device)))
+
+    def dev(x, grad=False):
+        return torch.tensor(x, device=device).requires_grad_(grad)
+    inputs = (dev(depths), dev(min_z, True), dev(max_z, True), dev(seg),
+              dev(seg_er), dev(z), dev(dw), dev(sil_gate))
+    return groups, rasters, inputs, WINDOW_LOSS_EPS
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms of fn on the current CUDA stream over reps calls after one
     warm-up call, by CUDA events."""

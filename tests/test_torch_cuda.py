@@ -1,6 +1,6 @@
 """GPU tests of the port's raster kernels, its face set-up kernels, its
-fill-in kernel and its phase marks (marked `cuda`; they skip without an
-NVIDIA GPU).
+window-loss kernels, its fill-in kernel and its phase marks (marked
+`cuda`; they skip without an NVIDIA GPU).
 
 This file imports torch and the port only, so it also runs where JAX is
 not installed. On a machine with a card:
@@ -471,3 +471,96 @@ def test_cuda_fillin_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     for a, b in zip(out["r"], (kx, km, per_round)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _window_loss_case(device, cell, seed):
+    from mhmocap_tpu_torch.workload import (WINDOW_LOSS_SHAPES,
+                                            window_loss_inputs)
+    return window_loss_inputs(WINDOW_LOSS_SHAPES[cell], seed, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["ts1-fit", "ts11-fit"])
+def test_cuda_window_loss_matches_plain(cuda_device, cell):
+    """The window-loss kernel pair against its plain version at the
+    benchmark cells' chunk shapes (29 frames, 2 people, 256x256, windows
+    160/128; 39 frames, 3 people, 240x135, windows 112/80/64), on the
+    edges `make_case` builds. Forward: the saved n_pix and n_keep exact
+    (sums of 0/1), the saved diffs to 1e-5 relative norm and the two
+    scalars to 1e-5 relative (the window sums run in another order).
+    Backward, from the kernel's own saved rows: each pixel's d_zbuf and
+    d_sil bit for bit `window_loss_bwd_plain`'s (the same IEEE
+    operations in autograd's order), d_min_z and d_max_z to 1e-5
+    relative norm (block sums against torch's). Two launches of each
+    kernel bit-identical; two launches counted a call each way."""
+    from window_loss_cases import former_chain, saved_of
+    from mhmocap_tpu_torch.ops import window_loss as WL
+    groups, rasters, inputs, eps = _window_loss_case(cuda_device, cell, 11)
+    rasters = [tuple(x.detach() for x in r) for r in rasters]
+    inputs = [x.detach() for x in inputs]
+    before = dict(WL.launches)
+    ld, ls, saved = WL.window_loss_fwd_cuda(groups, rasters, *inputs, eps)
+    rows = []
+    pd, ps = former_chain(groups, rasters, *inputs, eps, rows=rows)
+    ref = saved_of(rows)
+    assert torch.equal(saved[:, 0], ref[:, 0])
+    assert torch.equal(saved[:, 2], ref[:, 2])
+    assert rel_err(n(saved[:, 1]), n(ref[:, 1])) < 1e-5
+    assert torch.allclose(ld, pd, rtol=1e-5, atol=0)
+    assert torch.allclose(ls, ps, rtol=1e-5, atol=0)
+    again = WL.window_loss_fwd_cuda(groups, rasters, *inputs, eps)
+    assert all(torch.equal(a, b) for a, b in zip(again, (ld, ls, saved)))
+    cot = [torch.tensor(g, device=cuda_device) for g in (0.75, -1.5)]
+    kz, ks, kmin, kmax = WL.window_loss_bwd_cuda(groups, rasters, *inputs,
+                                                 eps, saved, *cot)
+    pz, ps_, pmin, pmax = WL.window_loss_bwd_plain(groups, rasters, *inputs,
+                                                   eps, saved, *cot)
+    for a, b in zip(kz + ks, pz + ps_):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert rel_err(n(kmin), n(pmin)) < 1e-5
+    assert rel_err(n(kmax), n(pmax)) < 1e-5
+    again = WL.window_loss_bwd_cuda(groups, rasters, *inputs, eps, saved,
+                                    *cot)
+    for a, b in zip(again[0] + again[1] + [again[2], again[3]],
+                    kz + ks + [kmin, kmax]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert dict(WL.launches) == {"fwd": before["fwd"] + 4,
+                                 "bwd": before["bwd"] + 4}
+
+
+@pytest.mark.cuda
+def test_cuda_window_loss_graph_equals_eager(cuda_device):
+    """`WindowLosses` forward and backward at ts11-fit's chunk shape
+    captured in a CUDA graph: a replay equals the eager call bit for bit
+    (both scalars and every gradient) and counts two launches each way;
+    the Function's gradients are `window_loss_bwd_cuda`'s."""
+    from window_loss_cases import leaves
+    from mhmocap_tpu_torch.engine.cycle_graph import capture_graph
+    from mhmocap_tpu_torch.ops import window_loss as WL
+    groups, rasters, inputs, eps = _window_loss_case(cuda_device,
+                                                     "ts11-fit", 5)
+
+    def run():
+        ld, ls = WL.window_losses(groups, rasters, *inputs, eps)
+        grads = torch.autograd.grad(0.75 * ld - 1.5 * ls,
+                                    leaves(rasters, inputs))
+        return (ld, ls) + grads
+
+    out = []
+    graph = capture_graph(lambda: out.append(run()), cuda_device)
+    for v in out[-1]:
+        v.fill_(-7)
+    WL.launches.reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert dict(WL.launches) == {"fwd": 2, "bwd": 2}
+    ref = run()
+    assert all(torch.equal(a, b) for a, b in zip(out[-1], ref))
+    plain = [tuple(x.detach() for x in r) for r in rasters]
+    _, _, saved = WL.window_loss_fwd_cuda(groups, plain,
+                                          *[x.detach() for x in inputs], eps)
+    cot = [torch.tensor(g, device=cuda_device) for g in (0.75, -1.5)]
+    kz, ks, kmin, kmax = WL.window_loss_bwd_cuda(
+        groups, plain, *[x.detach() for x in inputs], eps, saved, *cot)
+    for a, b in zip(ref[2:], [kmin, kmax] + kz + ks):
+        assert torch.equal(a, b)
